@@ -8,20 +8,29 @@ main path (`profile`) runs through them.
 
 Phases (each prints its own lines; the first failure exits non-zero):
   1. environment: torch/CUDA versions, the card, host packages;
-  2. build: the CUDA kernels (nvcc, sm_90a) and the native BAM decoder
-     (g++) from this checkout's sources, with the seconds each took;
-  3. kernels: each kernel against its plain PyTorch version on the card
-     (M in {1, 8}, L in {4096, 1048576, 1237}, with reference code 4,
-     coverage above the LUT cap and zero-count levels) and against the
-     golden outputs of the JAX package (tests/data/); integers, masks and
-     codes exact, clon within 1e-6, clonR bit for bit; kernel and plain
-     times from CUDA events;
-  4. end to end: `instrain_tpu_torch profile --device cuda` through the
-     CLI on a small synthetic BAM (its TSVs must equal the --device cpu
-     run's), then, with the kernels' launch counts reset, on the
-     synthetic metagenome (128 x 40 kb at 30x) and a one-scaffold isolate
-     (2.5 Mb at 60x), checking the output tables, the launch counts and
-     the absence of scaffold failures.
+  2. build: the CUDA kernels (nvcc, sm_90a, one process per source) and
+     the native BAM decoder (g++) from this checkout's sources, with the
+     seconds each took;
+  3. kernels: the site-stats and clonR kernels against their plain
+     PyTorch versions on the card (M in {1, 8}, L in {4096, 1048576,
+     1237}, with reference code 4, coverage above the LUT cap and
+     zero-count levels) and against the golden outputs of the JAX package
+     (tests/data/); integers, masks and codes exact, clon within 1e-6,
+     clonR bit for bit. Then the three compaction (K4) kernels against
+     their plain versions, bit for bit (M in {1, 8, 33}, L in {1237,
+     4096, 1048576}, and M = 8 at L = 2502656), and against the JAX
+     package's compaction golden file. Kernel and plain times from CUDA
+     events;
+  4. end to end: `instrain_tpu_torch profile` through the CLI on a small
+     synthetic BAM, --engine dense and --engine hybrid, each on
+     --device cuda and --device cpu (each pair's TSVs byte-identical);
+     then the main path: with every launch count reset, the synthetic
+     metagenome (128 x 40 kb at 30x) and a one-scaffold isolate (2.5 Mb
+     at 60x) through --engine auto, which is hybrid on the card, checking
+     the output tables, the launch counts and the absence of scaffold
+     failures; then both again through --engine dense (with their own
+     launch counts), compared with the hybrid runs under the reference's
+     cross-engine tolerances.
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
 """
@@ -247,6 +256,137 @@ def phase_kernels(torch, card):
     return errs, times[(8, 1 << 20)]
 
 
+def _bits(t):
+    import torch
+    return t.view({torch.float64: torch.int64,
+                   torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def compare_exact(want, got, what):
+    """Bit for bit over a (nested) dict of tensors and ints. Returns the
+    largest absolute float difference (0.0 when the check passes)."""
+    import torch
+    check(set(want) == set(got), f"{what}: keys {set(want) ^ set(got)}")
+    err = 0.0
+    for k, a in want.items():
+        b = got[k]
+        if isinstance(a, dict):
+            err = max(err, compare_exact(a, b, f"{what}/{k}"))
+            continue
+        if not isinstance(a, torch.Tensor):
+            check(int(a) == int(b), f"{what}/{k}: {a} vs {b}")
+            continue
+        a = a.to(b.device)
+        check(a.dtype == b.dtype and tuple(a.shape) == tuple(b.shape),
+              f"{what}/{k}: {a.dtype}{tuple(a.shape)} vs "
+              f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype.is_floating_point and a.numel():
+            d = (torch.nan_to_num(a, posinf=0.0) -
+                 torch.nan_to_num(b, posinf=0.0)).abs()
+            err = max(err, float(d.max()))
+        check(torch.equal(_bits(a), _bits(b)),
+              f"{what}/{k}: not bit-identical (max abs err {err})")
+    return err
+
+
+def phase_compact(torch, card):
+    import numpy as np
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.kernels import sitestats as S
+    from instrain_tpu_torch.kernels.nullmodel import \
+        analytic_null_thresholds
+    from instrain_tpu_torch.profile.compact import _fold_keys
+    from instrain_tpu_torch.synth import site_stats_inputs
+
+    dev = torch.device("cuda")
+    nl = torch.as_tensor(analytic_null_thresholds(max_coverage=10000),
+                         device=dev)
+    fl = torch.as_tensor(S.freq_min_count_lut(0.05, max_coverage=10000),
+                         device=dev)
+
+    def full_for(M, L, seed):
+        counts, ref = site_stats_inputs(M, L, seed=seed)
+        Mp = max(-(-M // 8) * 8, 8)
+        return C.site_stats(torch.from_numpy(counts).to(dev),
+                            torch.from_numpy(ref).to(dev), nl, fl,
+                            _fold_keys(42, [seed])[0], m_stride=Mp)
+
+    errs = dict.fromkeys(("select_rows", "mm_aggregates", "masked_median"),
+                         0.0)
+    shapes = [(M, L) for M in (1, 8, 33) for L in (1237, 4096, 1 << 20)]
+    for M, L in shapes + [(8, 2_502_656)]:
+        full = full_for(M, L, M * 13 + L % 89)
+        rows, link = CC.select_rows(full)
+        agg, cf, rf = CC.mm_aggregates(full)
+        med = CC.masked_median(full["total"], cf, rf, agg["counted"],
+                               agg["rarefied"])
+        torch.cuda.synchronize()
+        prows, plink = S.select_rows(full)
+        pagg, pcf, prf = S.mm_aggregates(full)
+        pmed = S.masked_medians(full["total"], pcf, prf, pagg["counted"],
+                                pagg["rarefied"])
+        tag = f"M={M} L={L}"
+        errs["select_rows"] = max(errs["select_rows"], compare_exact(
+            {"rows": prows, "linkage": plink}, {"rows": rows,
+                                                "linkage": link},
+            f"select_rows {tag}"))
+        errs["mm_aggregates"] = max(errs["mm_aggregates"], compare_exact(
+            {"agg": pagg, "clon_f": pcf, "clonR_f": prf},
+            {"agg": agg, "clon_f": cf, "clonR_f": rf},
+            f"mm_aggregates {tag}"))
+        errs["masked_median"] = max(errs["masked_median"], compare_exact(
+            pmed, med, f"masked_median {tag}"))
+        log("compact", f"{tag}: select_rows, mm_aggregates, masked_median "
+                       f"== plain bit for bit ({rows['n_rows']} SNP rows, "
+                       f"{link['n_pos']} SNV positions, "
+                       f"{int(agg['rarefied'].sum())} rarefied cells)")
+        del full
+
+    golden = os.path.join(ROOT, "tests", "data", "torch_compact_golden.npz")
+    with np.load(golden) as z:
+        g = {k: z[k] for k in z.files}
+    tags = sorted({k.split("/")[0] for k in g if "/" in k})
+    for tag in tags:
+        counts = torch.from_numpy(g[f"{tag}/counts"]).to(dev)
+        M, _, L = counts.shape
+        full = C.site_stats(counts, torch.from_numpy(g[f"{tag}/ref"]).to(
+            dev), torch.as_tensor(g["null_lut"], device=dev),
+            torch.as_tensor(g["freq_lut"], device=dev), g[f"{tag}/key"],
+            min_cov=5, min_covR=50, rarefied_draws=50,
+            m_stride=int(g[f"{tag}/m_stride"]))
+        got = CC.compact_from_full(full, M, L)
+        torch.cuda.synchronize()
+        want = {grp: {} for grp in ("rows", "agg", "linkage", "masks")}
+        for k, v in g.items():
+            parts = k.split("/")
+            if parts[0] == tag and parts[1] in want:
+                want[parts[1]][parts[2]] = (
+                    int(v) if v.ndim == 0 else torch.from_numpy(v))
+        compare_exact(want, got, f"compact golden {tag}")
+        log("compact", f"golden {tag}: rows, aggregates, linkage and masks "
+                       f"equal the JAX package bit for bit")
+
+    times = {}
+    for M, L in ((8, 40000), (8, 1 << 20)):
+        full = full_for(M, L, 7)
+        agg, cf, rf = CC.mm_aggregates(full)
+        med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"])
+        times[(M, L)] = t = {
+            "select_rows": timed_pair(torch, lambda: CC.select_rows(full),
+                                      lambda: S.select_rows(full), 20, 5),
+            "mm_aggregates": timed_pair(
+                torch, lambda: CC.mm_aggregates(full),
+                lambda: S.mm_aggregates(full), 20, 5),
+            "masked_median": timed_pair(
+                torch, lambda: CC.masked_median(*med_args),
+                lambda: S.masked_medians(*med_args), 20, 5)}
+        log("compact", f"time M={M} L={L} on {card}: " + "; ".join(
+            f"{k} kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms"
+            for k, v in t.items()))
+    return errs, times[(8, 1 << 20)]
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -258,13 +398,13 @@ def read_table(out, name):
                        else 0)
 
 
-def run_profile(bam, fasta, out):
+def run_profile(bam, fasta, out, engine):
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.profile import pipeline
     pipeline.PHASES = {}
     t0 = time.perf_counter()
-    rc = main(["profile", bam, fasta, "-o", out, "--device", "cuda"] +
-              FLAGS)
+    rc = main(["profile", bam, fasta, "-o", out, "--device", "cuda",
+               "--engine", engine] + FLAGS)
     torch_sync()
     wall = time.perf_counter() - t0
     check(rc == 0, f"profile exited {rc}")
@@ -302,30 +442,106 @@ def check_outputs(out, n_scaffolds, cov):
     return rows, int(info["SNV_count"].sum())
 
 
+class D2HBytes:
+    """Counts the bytes each engine brings back to the host per scaffold,
+    from the host arrays its stats object holds (every one of them came
+    over from the device), by wrapping the two engine calls the pipeline
+    makes."""
+
+    def __init__(self):
+        from instrain_tpu_torch.profile import compact, pipeline
+        self.mods = (compact, pipeline)
+        self.bytes = []
+
+    def _nbytes(self, tree):
+        if isinstance(tree, dict):
+            return sum(self._nbytes(v) for v in tree.values())
+        return getattr(tree, "nbytes", 0)
+
+    def __enter__(self):
+        compact, pipeline = self.mods
+        self.saved = (compact.run_site_stats_hybrid, pipeline.run_site_stats)
+
+        def hybrid(*a, **k):
+            st = self.saved[0](*a, **k)
+            # + the 8-byte read of the row and position counts
+            self.bytes.append(8 + sum(self._nbytes(d) for d in (
+                st.rows, st.agg, st.linkage, st.masks)) +
+                st.clon.nbytes + st.clonR.nbytes)
+            return st
+
+        def dense(*a, **k):
+            st = self.saved[1](*a, **k)
+            self.bytes.append(self._nbytes(st.arrays))
+            return st
+
+        compact.run_site_stats_hybrid, pipeline.run_site_stats = hybrid, dense
+        return self
+
+    def __exit__(self, *exc):
+        compact, pipeline = self.mods
+        compact.run_site_stats_hybrid, pipeline.run_site_stats = self.saved
+        return False
+
+
+def compare_tables(a_dir, b_dir, skip=()):
+    """The reference's cross-engine tolerances (tests/test_compact.py:
+    45-49): strings and integers exact, nucl_diversity* within 1e-6, other
+    floats within 1e-9. Returns the largest absolute difference of each
+    column in `skip`, which is not held to them."""
+    import numpy as np
+    diffs = {}
+    for t in ("SNVs", "scaffold_info", "linkage", "mapping_info"):
+        a, b = read_table(a_dir, t), read_table(b_dir, t)
+        check(list(a.columns) == list(b.columns) and len(a) == len(b),
+              f"{t}: shapes differ between engines")
+        for col in a.columns:
+            va, vb = a[col].values, b[col].values
+            if va.dtype.kind == "f" or vb.dtype.kind == "f":
+                va, vb = va.astype(float), vb.astype(float)
+                if col in skip:
+                    diffs[col] = float(np.nanmax(np.abs(va - vb)))
+                    continue
+                check(np.array_equal(np.isnan(va), np.isnan(vb)),
+                      f"{t}/{col}: NaN masks differ between engines")
+                m = ~np.isnan(va)
+                tol = 1e-6 if col.startswith("nucl_diversity") else 1e-9
+                check(np.allclose(va[m], vb[m], rtol=tol, atol=tol),
+                      f"{t}/{col}: engines differ beyond {tol}")
+            else:
+                check(np.array_equal(va, vb),
+                      f"{t}/{col}: engines differ")
+    return diffs
+
+
 def phase_end_to_end(torch):
-    from instrain_tpu_torch.kernels import cuda_sitestats as C
     from instrain_tpu_torch.cli import main
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
     from instrain_tpu_torch.synth import synth
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    # a small input against the CPU reference path, byte for byte
+    # a small input, each engine on the card against the CPU, byte for byte
     small = os.path.join(WORK, "small")
     os.makedirs(small)
     fasta, bam, _ = synth(small, S=4, L=5000, COV=60, seed=3)
-    outs = {}
-    for device in ("cuda", "cpu"):
-        outs[device] = os.path.join(small, f"{device}.IS")
-        check(main(["profile", bam, fasta, "-o", outs[device], "--device",
-                    device] + FLAGS) == 0, f"small {device} run failed")
-    for t in ("SNVs", "scaffold_info", "linkage", "mapping_info"):
-        paths = [os.path.join(o, "output", f"{d}.IS_{t}.tsv")
-                 for d, o in outs.items()]
-        texts = [open(p).read() for p in paths]
-        check(texts[0] == texts[-1], f"small input: {t} differs GPU vs CPU")
-    log("e2e", "small input (4 x 5 kb, 60x): GPU TSVs byte-identical to "
-               "the --device cpu run")
+    for engine in ("dense", "hybrid"):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            outs[device] = os.path.join(small, f"{engine}_{device}.IS")
+            check(main(["profile", bam, fasta, "-o", outs[device],
+                        "--device", device, "--engine", engine] +
+                       FLAGS) == 0, f"small {engine} {device} run failed")
+        for t in ("SNVs", "scaffold_info", "linkage", "mapping_info"):
+            texts = [open(os.path.join(o, "output",
+                                       f"{os.path.basename(o)}_{t}.tsv")
+                          ).read() for o in outs.values()]
+            check(texts[0] == texts[1],
+                  f"small input, --engine {engine}: {t} differs GPU vs CPU")
+        log("e2e", f"small input (4 x 5 kb, 60x), --engine {engine}: GPU "
+                   f"TSVs byte-identical to the --device cpu run")
 
     cases = [("metagenome", 128, 40_000, 30), ("isolate", 1, 2_500_000, 60)]
     data = {}
@@ -338,30 +554,60 @@ def phase_end_to_end(torch):
                    f"{data[name][2]} pairs): "
                    f"{time.perf_counter() - t0:.2f} s")
 
-    # the main path: launch counts from these two runs only
-    C.reset_launch_counts()
-    expected_chunks = 0
-    for name, S, L, cov in cases:
-        fasta, bam, n_pairs = data[name]
-        out = os.path.join(WORK, name, f"{name}.IS")
-        wall, phases = run_profile(bam, fasta, out)
-        rows, snvs = check_outputs(out, S, cov)
-        mi = read_table(out, "mapping_info")
-        filtered = int(mi["filtered_pairs"].iloc[0])
-        check(filtered > 0.9 * n_pairs, f"{name}: {filtered} of {n_pairs} "
-                                        f"pairs pass filtering")
-        expected_chunks += S * math.ceil(L / (1 << 20))
-        log("e2e", f"{name}: wall {wall:.2f} s, {filtered} filtered pairs "
-                   f"-> {filtered / wall:.0f} filtered pairs/s; rows "
-                   f"{rows}; {snvs} SNV sites")
-        log("e2e", f"{name} phases (s): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in phases.items()))
-    launches = C.launch_counts()
+    def drive(engine):
+        """Both inputs through one engine, launch counts reset just
+        before and read just after."""
+        C.reset_launch_counts()
+        CC.reset_launch_counts()
+        outs = {}
+        for name, S, L, cov in cases:
+            fasta, bam, n_pairs = data[name]
+            out = outs[name] = os.path.join(WORK, name, f"{name}_{engine}.IS")
+            with D2HBytes() as d2h:
+                wall, phases = run_profile(bam, fasta, out, engine)
+            rows, snvs = check_outputs(out, S, cov)
+            mi = read_table(out, "mapping_info")
+            filtered = int(mi["filtered_pairs"].iloc[0])
+            check(filtered > 0.9 * n_pairs, f"{name}: {filtered} of "
+                                            f"{n_pairs} pairs pass filtering")
+            log("e2e", f"{name} --engine {engine}: wall {wall:.2f} s, "
+                       f"{filtered} filtered pairs -> "
+                       f"{filtered / wall:.0f} filtered pairs/s; rows "
+                       f"{rows}; {snvs} SNV sites")
+            log("e2e", f"{name} --engine {engine} phases (s): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in phases.items()))
+            log("e2e", f"{name} --engine {engine} D2H: {sum(d2h.bytes)} "
+                       f"bytes over {len(d2h.bytes)} engine calls, "
+                       f"{sum(d2h.bytes) / len(d2h.bytes):.0f} per call")
+        return outs, {**C.launch_counts(), **CC.launch_counts()}
+
+    # the main path: --engine auto, which is the hybrid engine on the card
+    n_scaffolds = sum(S for _, S, _, _ in cases)
+    hybrid, launches = drive("auto")
     log("e2e", f"launches in the main path: {launches} "
-               f"(scaffold chunks: {expected_chunks})")
+               f"({n_scaffolds} scaffolds)")
     for k, n in launches.items():
-        check(n >= expected_chunks,
-              f"kernel {k} launched {n} times for {expected_chunks} chunks")
+        check(n >= n_scaffolds,
+              f"kernel {k} launched {n} times for {n_scaffolds} scaffolds")
+
+    # the dense engine, with its position chunks
+    dense, dense_launches = drive("dense")
+    chunks = sum(S * math.ceil(L / (1 << 20)) for _, S, L, _ in cases)
+    log("e2e", f"launches in the dense runs: {dense_launches} "
+               f"({chunks} scaffold chunks)")
+    for k, n in dense_launches.items():
+        want = chunks if k in ("site_stats", "clonR") else 0
+        check(n == want, f"dense runs: kernel {k} launched {n} times, "
+                         f"expected {want}")
+    compare_tables(hybrid["metagenome"], dense["metagenome"])
+    rare = ("nucl_diversity_rarefied", "nucl_diversity_rarefied_median")
+    diffs = compare_tables(hybrid["isolate"], dense["isolate"], skip=rare)
+    log("e2e", "metagenome: hybrid and dense tables agree within the "
+               "reference's cross-engine tolerances; isolate: the same, "
+               "except the rarefied columns, drawn per 1 Mb chunk by the "
+               "dense engine and once per scaffold by the hybrid engine "
+               "(max abs difference " + ", ".join(
+                   f"{k} {v:.3g}" for k, v in diffs.items()) + ")")
     return launches
 
 
@@ -396,6 +642,9 @@ def main():
     card = phase_environment(torch)
     phase_build()
     errs, times = phase_kernels(torch, card)
+    cerrs, ctimes = phase_compact(torch, card)
+    errs.update(cerrs)
+    times.update(ctimes)
     launches = phase_end_to_end(torch)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
@@ -413,6 +662,14 @@ def main():
          "launches": launches["clonR"],
          "max_abs_err": errs["clonR"],
          "ms": times["clonR"][0], "plain_ms": times["clonR"][1]},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "instrain_tpu_torch/csrc/compact.cu",
+         "replaces": f"instrain_tpu/kernels/sitestats.py:{line}",
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, line in (("select_rows", 325), ("mm_aggregates", 346),
+                           ("masked_median", 379))
     ]
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

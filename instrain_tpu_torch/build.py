@@ -11,7 +11,8 @@ Each library's file name carries a hash of its sources and flags, so an
 edited source builds anew. Builds are safe when several processes start
 them at once (pytest-xdist workers): a per-library lock file serialises
 them, and the compiler writes to a temporary name that is renamed into
-place. A library is never loaded from anywhere else.
+place. A library is never loaded from anywhere else. The CUDA sources
+compile in parallel, one nvcc each, and are then linked.
 """
 
 from __future__ import annotations
@@ -43,12 +44,40 @@ def _digest(paths: List[str], flags: List[str]) -> str:
     return h.hexdigest()[:16]
 
 
+Stages = List[List[List[str]]]
+
+
+def _run_stage(name: str, cmds: List[List[str]], log) -> None:
+    """Run the commands of one build stage at once; raise on a failure."""
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    except FileNotFoundError as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise BuildError(f"{name}: compiler not found: {e}") from None
+    failed = []
+    for c, p in zip(cmds, procs):
+        out = p.communicate()[0]
+        log.write(" ".join(c) + "\n" + out)
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)}:\n{out}")
+    if failed:
+        raise BuildError(f"{name}: build failed ({failed[0]})")
+
+
 def build_library(name: str, sources: List[str], headers: List[str],
-                  command: Callable[[str], List[str]]) -> str:
-    """Path of lib<name>-<hash>.so, compiling it with `command(out_path)`
-    unless it exists. Compiler output goes to a .log beside it."""
+                  stages: Callable[[str], Stages]) -> str:
+    """Path of lib<name>-<hash>.so, building it unless it exists.
+    `stages(out_path)` gives the compiler commands: those of a stage run
+    at once, the stages in order. Compiler output goes to a .log beside
+    the library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    probe = command("OUT")
+    probe = [a for stage in stages("OUT") for c in stage for a in c]
     target = os.path.join(
         BUILD_DIR, f"lib{name}-{_digest(sources + headers, probe)}.so")
     if os.path.exists(target):
@@ -58,19 +87,15 @@ def build_library(name: str, sources: List[str], headers: List[str],
         if os.path.exists(target):          # another process built it
             return target
         tmp = f"{target}.tmp{os.getpid()}"
-        cmd = command(tmp)
         try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-        except FileNotFoundError as e:
-            raise BuildError(f"{name}: compiler not found: {e}") from None
-        with open(target[:-3] + ".log", "w") as log:
-            log.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise BuildError(f"{name}: build failed ({' '.join(cmd)}):\n"
-                             f"{res.stdout}{res.stderr}")
-        os.replace(tmp, target)
+            with open(target[:-3] + ".log", "w") as log:
+                for stage in stages(tmp):
+                    _run_stage(name, stage, log)
+            os.replace(tmp, target)
+        finally:
+            for f in os.listdir(BUILD_DIR):
+                if f.startswith(os.path.basename(tmp)):
+                    os.remove(os.path.join(BUILD_DIR, f))
     return target
 
 
@@ -107,9 +132,9 @@ def native_io_library(use_libdeflate: Optional[bool] = None) -> str:
         extra, libs = [f"-I{shim}"], ["-lz"]
     cxx = os.environ.get("CXX", "g++")
 
-    def command(out: str) -> List[str]:
-        return ([cxx, "-O3", "-fPIC", "-std=c++17", "-Wall"] + extra +
-                sources + ["-o", out, "-shared"] + libs + ["-lpthread"])
+    def command(out: str) -> Stages:
+        return [[[cxx, "-O3", "-fPIC", "-std=c++17", "-Wall"] + extra +
+                 sources + ["-o", out, "-shared"] + libs + ["-lpthread"]]]
 
     return build_library("instrain_io", sources, headers, command)
 
@@ -131,11 +156,15 @@ def cuda_kernels_library() -> str:
     if nvcc is None:
         raise BuildError("nvcc not found (set CUDA_HOME)")
 
-    def command(out: str) -> List[str]:
-        # no --use_fast_math: divisions stay IEEE (bit parity with the
-        # plain versions); -Xptxas -v records registers/spills in the log
-        return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                "-Xptxas", "-v", "-o", out] + sources
+    def command(out: str) -> Stages:
+        # one nvcc per source, all at once, then one link; no
+        # --use_fast_math: divisions stay IEEE (bit parity with the plain
+        # versions); -Xptxas -v records registers/spills in the log
+        objs = [f"{out}.{os.path.basename(s)}.o" for s in sources]
+        return [[[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                  "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                  "-Xptxas", "-v", "-o", o, s]
+                 for s, o in zip(sources, objs)],
+                [[nvcc, "-shared", "-o", out] + objs]]
 
     return build_library("instrain_kernels", sources, headers, command)

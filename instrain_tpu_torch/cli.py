@@ -136,8 +136,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "not ported yet)")
     g.add_argument("--engine", default="auto",
                    choices=["auto", "dense", "hybrid", "batch", "pallas"],
-                   help="kernel path; auto and dense run the per-scaffold "
-                        "dense engine (the others are not ported yet)")
+                   help="kernel path: dense (site stats on the device, "
+                        "dense outputs to the host), hybrid (plus the "
+                        "device compaction, so only table-ready outputs "
+                        "come back; a scaffold whose padded M x L exceeds "
+                        "2^27 cells runs dense), or auto: hybrid on "
+                        "--device cuda, dense on --device cpu (batch and "
+                        "pallas are not ported yet)")
     g.add_argument("--mesh_devices", default=0, type=int,
                    help="multi-GPU sharding (not ported yet: raises "
                         "above 1)")

@@ -292,3 +292,128 @@ def clonR_values(cum, total, clonR_set, key, rarefied_draws: int,
     return torch.where(clonR_set, vals,
                        torch.tensor(float("nan"), dtype=torch.float32,
                                     device=cum.device))
+
+
+# ---------------------------------------------------------------------------
+# Device compaction (K4): the counterpart of instrain_tpu/kernels/
+# sitestats.py:_compact_from_full (:533-646). From the dense site_stats
+# outputs it computes the SNP rows (position-major), the per-mm scaffold
+# aggregates make_coverage_table needs (exact medians, f64 clonality sums),
+# the SNV-position count profiles linkage needs, and the position masks.
+# The outputs are sized exactly: no capacities, no -1 padding, so the
+# JAX dicts' `valid` fields have no counterpart here.
+
+AGG_INT = ("cov_sum", "cov_sumsq", "nonzeros", "counted", "rarefied",
+           "div_sites", "sns", "snv", "con_snps", "pop_snps")
+AGG_F64 = ("clon_sum", "clonR_sum")
+AGG_MEDIAN = ("cov_median", "clon_median", "clonR_median")
+
+
+def first_set_indices(mask):
+    """Ascending indices (int64) of the set elements of a 1-D bool mask."""
+    return torch.nonzero(mask).flatten()
+
+
+def ffill_expand(vals_list, set_mask, fills):
+    """Forward-fill each array down the mm axis (axis 0): out[m] = value at
+    the highest m' <= m where set_mask (else that array's fill). Returns
+    (filled_list, have) with have[m] = any(set_mask[:m+1])."""
+    M = set_mask.shape[0]
+    m_idx = torch.arange(M, device=set_mask.device).view(
+        (M,) + (1,) * (set_mask.dim() - 1))
+    last = torch.where(set_mask, m_idx, -1).cummax(dim=0).values
+    have = last >= 0
+    src = last.clamp(min=0)
+    outs = [torch.where(have, torch.gather(v, 0, src),
+                        torch.full_like(v, f))
+            for v, f in zip(vals_list, fills)]
+    return outs, have
+
+
+def median_select(vals_f32, count):
+    """Exact masked median per row: vals [R, L] f32 with non-members set
+    to +inf (members >= 0), count [R] members per row. The mean, in f32,
+    of the lower and upper middle order statistics (k1 = (c-1)//2 + 1,
+    k2 = c//2 + 1); NaN where count is 0."""
+    c = count.clamp(min=1).to(torch.int64)
+    srt = torch.sort(vals_f32, dim=1).values
+    v1 = torch.gather(srt, 1, ((c - 1) // 2)[:, None])[:, 0]
+    v2 = torch.gather(srt, 1, (c // 2)[:, None])[:, 0]
+    med = (v1 + v2) / 2
+    return torch.where(count > 0, med, torch.full_like(med, float("nan")))
+
+
+def select_rows(full):
+    """(rows, linkage): the SNP rows where full["row"] holds, ascending
+    (position, mm), and the linkage count profiles at the positions where
+    full["any_snp"] holds."""
+    row, cum = full["row"], full["cum"]
+    M = row.shape[0]
+    ridx = first_set_indices(row.T.reshape(-1))
+    r_pos, r_mm = ridx // M, ridx % M
+    rows = dict(pos=r_pos.to(torch.int32), mm_idx=r_mm.to(torch.int32))
+    for b, name in enumerate("ACTG"):
+        rows[name] = cum[r_mm, b, r_pos]
+    rows["total"] = full["total"][r_mm, r_pos]
+    for k in ("con", "var", "morphia", "cls"):
+        rows[k] = full[k][r_mm, r_pos]
+    rows["cryptic"] = full["cryptic"][r_pos]
+    rows["n_rows"] = int(ridx.numel())
+    pidx = first_set_indices(full["any_snp"])
+    linkage = dict(pos=pidx.to(torch.int32), cum=cum[:, :, pidx],
+                   present=full["present"][:, pidx],
+                   n_pos=int(pidx.numel()))
+    return rows, linkage
+
+
+def mm_aggregates(full):
+    """(agg, clon_f, clonR_f): the integer and f64 per-mm aggregates
+    (AGG_INT, AGG_F64, mm_active), and the forward-filled clon / clonR
+    [M, L] f32 with +inf where no mm' <= m is set — the median inputs."""
+    total, row, clon, clonR = (full["total"], full["row"], full["clon"],
+                               full["clonR"])
+    inf = float("inf")
+    agg = dict(cov_sum=total.sum(dim=1), cov_sumsq=(total * total).sum(dim=1),
+               nonzeros=(total > 0).sum(dim=1))
+    filled = {}
+    for name, vals, cnt, sm in (("clon", clon, "counted", "clon_sum"),
+                                ("clonR", clonR, "rarefied", "clonR_sum")):
+        (f,), has = ffill_expand([vals], ~torch.isnan(vals), [inf])
+        agg[cnt] = has.sum(dim=1)
+        agg[sm] = torch.where(has, f, 0.0).to(torch.float64).sum(dim=1)
+        filled[name] = f
+    # morphia and class share the `row` mask: fill one packed code
+    enc = (full["morphia"].to(torch.int32) << 3) | full["cls"].to(torch.int32)
+    (enc_f,), have_row = ffill_expand([enc], row, [-1])
+    mor_f, cls_f = enc_f >> 3, enc_f & 7
+    agg["div_sites"] = have_row.sum(dim=1)
+    agg["sns"] = (have_row & (mor_f == 1)).sum(dim=1)
+    agg["snv"] = (have_row & (mor_f > 1)).sum(dim=1)
+    agg["con_snps"] = (have_row & ((cls_f == SNS) | (cls_f == CON_SNV) |
+                                   (cls_f == POP_SNV))).sum(dim=1)
+    agg["pop_snps"] = (have_row & ((cls_f == SNS) |
+                                   (cls_f == POP_SNV))).sum(dim=1)
+    agg["mm_active"] = full["present"].any(dim=1)
+    return agg, filled["clon"], filled["clonR"]
+
+
+def masked_medians(total, clon_f, clonR_f, counted, rarefied):
+    """cov_median (total as f32 over every position, zeros included),
+    clon_median and clonR_median (over the filled values), each [M] f32."""
+    M, L = total.shape
+    every = torch.full((M,), L, dtype=torch.int64, device=total.device)
+    return dict(cov_median=median_select(total.to(torch.float32), every),
+                clon_median=median_select(clon_f, counted),
+                clonR_median=median_select(clonR_f, rarefied))
+
+
+def compact_from_full(full, M: int, L: int) -> Dict[str, Dict]:
+    """K4 on the site_stats outputs of an [M, L] scaffold: dict(rows, agg,
+    linkage, masks) with the JAX function's key names and dtypes."""
+    assert tuple(full["total"].shape) == (M, L), (full["total"].shape, M, L)
+    rows, linkage = select_rows(full)
+    agg, clon_f, clonR_f = mm_aggregates(full)
+    agg.update(masked_medians(full["total"], clon_f, clonR_f,
+                              agg["counted"], agg["rarefied"]))
+    masks = {k: full[k] for k in ("cryptic", "any_snp", "bases_mask")}
+    return dict(rows=rows, agg=agg, linkage=linkage, masks=masks)

@@ -215,7 +215,14 @@ def calculate_linkage(stats: ScaffoldStats, window_starts: np.ndarray,
 
 
 def _gather_pos_stats(stats, positions):
-    """(cum counts [E, M, 4], exact-mm presence [E, M]) at positions."""
+    """(cum counts [E, M, 4], exact-mm presence [E, M]) at positions —
+    from dense arrays or from the compacted per-SNV-position profiles."""
+    if hasattr(stats, "linkage"):  # CompactStats
+        lk = stats.linkage
+        idx = np.searchsorted(lk["pos"], positions)
+        assert np.array_equal(lk["pos"][idx], positions), "position missing"
+        return (lk["cum"][:, :, idx].transpose(2, 0, 1),
+                lk["present"][:, idx].T)
     cum = stats.cum
     present = stats.present
     return (cum[:, :, positions].transpose(2, 0, 1),

@@ -20,7 +20,6 @@ import torch
 from ..io.bam import BamArrays
 from ..kernels import cuda_sitestats, nullmodel
 from ..kernels.sitestats import freq_min_count_lut
-from .compact import _fold_keys
 from .filter_reads import PairSet
 
 
@@ -124,6 +123,7 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
     keeps the JAX engine's padded mm extent max(ceil8(M), 8), so clonR
     is bit-identical to it.
     """
+    from .compact import _fold_keys
     counts = pileup.counts
     M, _, L = counts.shape
     dev = torch.device(device)

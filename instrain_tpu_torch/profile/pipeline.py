@@ -1,14 +1,16 @@
 """
 The `profile` operation: BAM + FASTA -> profile directory — the
 counterpart of instrain_tpu/profile/pipeline.py, single process, with the
-dense per-scaffold engine.
+per-scaffold dense and hybrid engines.
 
 Steps (reference: controller.py:144-169): decode the BAM natively, filter
 read pairs, then per scaffold build the pileup counts, run the site-stats
-and rarefied-clonality kernels on the chosen device (cfg.device), build
-the SNV/scaffold/linkage tables on the host, and store the profile
-directory and its TSVs. Genome-wide aggregation, plots and the other
-engines are not ported yet: asking for them raises (ROADMAP.md).
+and rarefied-clonality kernels on the chosen device (cfg.device) — and,
+with the hybrid engine, the device compaction (K4), so that only
+table-ready outputs come back — build the SNV/scaffold/linkage tables on
+the host, and store the profile directory and its TSVs. Genome-wide
+aggregation, plots and the batch engine are not ported yet: asking for
+them raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
                            report_run_stats)
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
+from . import compact as compact_mod
 from . import linkage as linkage_mod
 from . import tables
 from .filter_reads import filter_reads
-from .pileup import (ScaffoldStats, build_scaffold_pileup, make_luts,
-                     run_site_stats)
+from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
+                     make_luts, run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
 # per phase (decode, filter, pileup, kernels, tables, store) of a profile
@@ -70,9 +73,8 @@ def unported(what: str, item: str) -> NotImplementedError:
 def check_supported(cfg: ProfileConfig) -> None:
     """Raise for every option of `profile` that this port does not run,
     instead of ignoring it."""
-    if cfg.engine not in ("auto", "dense"):
-        item = {"hybrid": "item 1: compaction K4",
-                "batch": "item 2: batch engine K5"}.get(
+    if cfg.engine not in ("auto", "dense", "hybrid"):
+        item = {"batch": "item 2: batch engine K5"}.get(
             cfg.engine, "the dense engine is the Hopper counterpart of "
                         "--engine pallas: use --engine dense")
         raise unported(f"--engine {cfg.engine}", item)
@@ -99,6 +101,30 @@ def resolve_device(name: str) -> torch.device:
                                "(pass --device cpu to run on the CPU)")
         return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown device {name!r} (cuda or cpu)")
+
+
+# The hybrid engine holds a scaffold's whole padded [Mp, 4, Lp] working
+# set on the device in one launch; above this many padded cells the JAX
+# package sends the scaffold to the position-chunked dense engine
+# (instrain_tpu/profile/pipeline.py:475-481). The port keeps its bound,
+# although the card holds more: the engine decides the clonR draws' keys
+# on scaffolds over 1 Mb.
+HYBRID_MAX_CELLS = 1 << 27
+
+
+def resolve_engine(cfg_engine: str, device: torch.device, M: int,
+                   L: int) -> str:
+    """The engine one scaffold of [M, L] runs, as the JAX package picks
+    it (pipeline.py:451-453, :475-481): auto is dense on the CPU and
+    hybrid on a GPU; hybrid goes dense when max(ceil8(M), 8) *
+    max(ceil4096(L), 4096) exceeds HYBRID_MAX_CELLS."""
+    engine = cfg_engine
+    if engine == "auto":
+        engine = "dense" if device.type == "cpu" else "hybrid"
+    if (engine == "hybrid" and max(_bucket(M, 8), 8) *
+            max(_bucket(L, 4096), 4096) > HYBRID_MAX_CELLS):
+        engine = "dense"
+    return engine
 
 
 @dataclass
@@ -284,20 +310,29 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
             pileup.qid2mmidx = np.where(pileup.qid2mmidx >= 0, 0,
                                         -1).astype(np.int32)
     ref_codes = registry.codes[name]
+    M = pileup.counts.shape[0]
+    run = (compact_mod.run_site_stats_hybrid
+           if resolve_engine(cfg.engine, device, M, L) == "hybrid"
+           else run_site_stats)
     with _phase("kernels"):
-        stats = run_site_stats(pileup, ref_codes, null_lut, freq_lut,
-                               min_cov=cfg.variant.min_cov,
-                               rarefied_coverage=cfg.rarefied_coverage,
-                               seed=cfg.seed, device=device)
+        stats = run(pileup, ref_codes, null_lut, freq_lut,
+                    min_cov=cfg.variant.min_cov,
+                    rarefied_coverage=cfg.rarefied_coverage, seed=cfg.seed,
+                    device=device)
     with _phase("tables"):
         return _result_from_stats(name, L, stats, ref_codes, cfg)
 
 
 def _result_from_stats(name, L, stats, ref_codes, cfg):
-    """SNP / SNV / coverage tables and host linkage for one scaffold."""
-    snp = tables.snp_table(stats, ref_codes)
-    csnv = tables.cumulative_snv_table(snp)
-    ctable = tables.coverage_table(stats, snp)
+    """SNP / SNV / coverage tables and host linkage for one scaffold,
+    from compact or dense stats."""
+    if isinstance(stats, compact_mod.CompactStats):
+        snp, csnv = compact_mod.snp_tables_compact(stats, ref_codes)
+        ctable = compact_mod.coverage_table_compact(stats)
+    else:
+        snp = tables.snp_table(stats, ref_codes)
+        csnv = tables.cumulative_snv_table(snp)
+        ctable = tables.coverage_table(stats, snp)
     ws = linkage_mod.window_starts_for(L, cfg.window_length)
     ld = linkage_mod.calculate_linkage(stats, ws, min_snp=int(cfg.min_snp),
                                       seed=cfg.seed, engine="host")
