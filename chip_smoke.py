@@ -19,24 +19,38 @@ Phases (each prints its own lines; the first failure exits non-zero):
      clonR bit for bit. Then the three compaction (K4) kernels against
      their plain versions, bit for bit (M in {1, 8, 33}, L in {1237,
      4096, 1048576}, and M = 8 at L = 2502656), and against the JAX
-     package's compaction golden file. Kernel and plain times from CUDA
-     events;
+     package's compaction golden file. Then the batch engine's form of
+     clonR and K4 (K5: a chunk of scaffolds laid end to end, one segment
+     each) against their plain versions at segments of unequal length, a
+     single position and one past 1 Mb among them, M in {1, 8, 33}, and
+     the engine's chunk path against the JAX package's batch golden file;
+     and the linkage kernel (K6) against its plain version and the JAX
+     package's golden file, every column bit for bit. Kernel and plain
+     times from CUDA events;
   4. end to end: `instrain_tpu_torch profile` through the CLI on a small
-     synthetic BAM, --engine dense and --engine hybrid, each on
-     --device cuda and --device cpu (each pair's TSVs byte-identical);
-     then the main path: with every launch count reset, the synthetic
-     metagenome (128 x 40 kb at 30x) and a one-scaffold isolate (2.5 Mb
-     at 60x) through --engine auto, which is hybrid on the card, checking
-     the output tables, the launch counts and the absence of scaffold
-     failures; then both again through --engine dense (with their own
-     launch counts), compared with the hybrid runs under the reference's
-     cross-engine tolerances.
+     synthetic BAM, --engine dense, hybrid and batch, each on --device
+     cuda and --device cpu (each pair's TSVs byte-identical); then the
+     main paths through --engine auto, each with every launch count reset
+     just before it and read just after: the synthetic metagenome (128 x
+     40 kb at 30x), which runs the batch engine, a one-scaffold isolate
+     (2.5 Mb at 60x) and a deep input (250 kb at 3000x, whose linkage
+     crosses the device bound), which run hybrid, checking the output
+     tables, each kernel's launch count against the planned chunks and
+     the scaffolds past the linkage bound, and the absence of scaffold
+     failures; then the metagenome through
+     --engine hybrid (TSVs byte-identical to the batch run), both engines'
+     device copies under torch.profiler, the deep input on --device cpu
+     with the device linkage engine forced (TSVs byte-identical), and the
+     metagenome and the isolate through --engine dense (launch counts
+     reset and read around each run: site_stats and clonR once per 1 Mb
+     position chunk, the other kernels never; the reference's
+     cross-engine tolerances against the batch and hybrid tables, the
+     rarefied columns of the isolate apart).
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
 """
 
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -192,14 +206,14 @@ def phase_kernels(torch, card):
             counts, ref = site_stats_inputs(M, L, seed=M * 31 + L % 97)
             c = torch.from_numpy(counts).to(dev)
             r = torch.from_numpy(ref).to(dev)
-            key = _fold_keys(42, [M + L])[0]
+            seg = C.single_segment(L, _fold_keys(42, [M + L])[0], dev)
             Mp = max(-(-M // 8) * 8, 8)
             core_k = C.site_stats_core(c, r, nl, fl, 5, 50)
             core_p = C.site_stats_core_plain(c, r, nl, fl, 5, 50)
             torch.cuda.synchronize()
             e1 = compare(core_p, core_k, f"site_stats M={M} L={L}")
             args = (core_p["cum"], core_p["total"], core_p["clonR_set"],
-                    key, 50, Mp)
+                    seg, 50, Mp)
             cr_k = C.clonR(*args)
             cr_p = C.clonR_plain(*args)
             torch.cuda.synchronize()
@@ -220,10 +234,11 @@ def phase_kernels(torch, card):
           torch.as_tensor(g["freq_lut"], device=dev))
     tags = sorted({k.split("/")[0] for k in g if "/" in k})
     for tag in tags:
-        got = C.site_stats(torch.from_numpy(g[f"{tag}/counts"]).to(dev),
-                           torch.from_numpy(g[f"{tag}/ref"]).to(dev), *gl,
-                           g[f"{tag}/key"], min_cov=5, min_covR=50,
-                           rarefied_draws=50,
+        counts = torch.from_numpy(g[f"{tag}/counts"]).to(dev)
+        got = C.site_stats(counts, torch.from_numpy(g[f"{tag}/ref"]).to(dev),
+                           *gl, C.single_segment(counts.shape[-1],
+                                                 g[f"{tag}/key"], dev),
+                           min_cov=5, min_covR=50, rarefied_draws=50,
                            m_stride=int(g[f"{tag}/m_stride"]))
         torch.cuda.synchronize()
         want = {k.split("/")[-1]: v for k, v in g.items()
@@ -239,9 +254,9 @@ def phase_kernels(torch, card):
         counts, ref = site_stats_inputs(M, L, seed=7)
         c = torch.from_numpy(counts).to(dev)
         r = torch.from_numpy(ref).to(dev)
-        key = _fold_keys(42, [0])[0]
+        seg = C.single_segment(L, _fold_keys(42, [0])[0], dev)
         core = C.site_stats_core_plain(c, r, nl, fl, 5, 50)
-        args = (core["cum"], core["total"], core["clonR_set"], key, 50, 8)
+        args = (core["cum"], core["total"], core["clonR_set"], seg, 50, 8)
         t_core = timed_pair(torch, lambda: C.site_stats_core(
             c, r, nl, fl, 5, 50), lambda: C.site_stats_core_plain(
             c, r, nl, fl, 5, 50), 20, 3)
@@ -289,6 +304,18 @@ def compare_exact(want, got, what):
     return err
 
 
+def one_scaffold(out):
+    """The K4 outputs of a chunk of one segment in the JAX package's
+    one-scaffold form: the aggregates without their segment axis, rows
+    and linkage without seg_start (checked: [0, n_rows] and [0, n_pos])."""
+    rows, link = dict(out["rows"]), dict(out["linkage"])
+    check(rows.pop("seg_start").tolist() == [0, rows["n_rows"]] and
+          link.pop("seg_start").tolist() == [0, link["n_pos"]],
+          "a one-segment chunk's seg_start is not [0, n]")
+    return dict(rows=rows, agg={k: v[0] for k, v in out["agg"].items()},
+                linkage=link, masks=out["masks"])
+
+
 def phase_compact(torch, card):
     import numpy as np
     from instrain_tpu_torch.kernels import cuda_compact as CC
@@ -306,26 +333,28 @@ def phase_compact(torch, card):
                          device=dev)
 
     def full_for(M, L, seed):
+        """Site stats of one scaffold, and its one-segment table."""
         counts, ref = site_stats_inputs(M, L, seed=seed)
         Mp = max(-(-M // 8) * 8, 8)
+        seg = C.single_segment(L, _fold_keys(42, [seed])[0], dev)
         return C.site_stats(torch.from_numpy(counts).to(dev),
-                            torch.from_numpy(ref).to(dev), nl, fl,
-                            _fold_keys(42, [seed])[0], m_stride=Mp)
+                            torch.from_numpy(ref).to(dev), nl, fl, seg,
+                            m_stride=Mp), seg
 
     errs = dict.fromkeys(("select_rows", "mm_aggregates", "masked_median"),
                          0.0)
     shapes = [(M, L) for M in (1, 8, 33) for L in (1237, 4096, 1 << 20)]
     for M, L in shapes + [(8, 2_502_656)]:
-        full = full_for(M, L, M * 13 + L % 89)
-        rows, link = CC.select_rows(full)
-        agg, cf, rf = CC.mm_aggregates(full)
+        full, seg = full_for(M, L, M * 13 + L % 89)
+        rows, link = CC.select_rows(full, seg)
+        agg, cf, rf = CC.mm_aggregates(full, seg)
         med = CC.masked_median(full["total"], cf, rf, agg["counted"],
-                               agg["rarefied"])
+                               agg["rarefied"], seg)
         torch.cuda.synchronize()
-        prows, plink = S.select_rows(full)
-        pagg, pcf, prf = S.mm_aggregates(full)
-        pmed = S.masked_medians(full["total"], pcf, prf, pagg["counted"],
-                                pagg["rarefied"])
+        prows, plink = S.select_rows_seg(full, seg)
+        pagg, pcf, prf = S.mm_aggregates_seg(full, seg)
+        pmed = S.masked_medians_seg(full["total"], pcf, prf, pagg["counted"],
+                                    pagg["rarefied"], seg)
         tag = f"M={M} L={L}"
         errs["select_rows"] = max(errs["select_rows"], compare_exact(
             {"rows": prows, "linkage": plink}, {"rows": rows,
@@ -349,13 +378,13 @@ def phase_compact(torch, card):
     tags = sorted({k.split("/")[0] for k in g if "/" in k})
     for tag in tags:
         counts = torch.from_numpy(g[f"{tag}/counts"]).to(dev)
-        M, _, L = counts.shape
+        seg = C.single_segment(counts.shape[-1], g[f"{tag}/key"], dev)
         full = C.site_stats(counts, torch.from_numpy(g[f"{tag}/ref"]).to(
             dev), torch.as_tensor(g["null_lut"], device=dev),
-            torch.as_tensor(g["freq_lut"], device=dev), g[f"{tag}/key"],
+            torch.as_tensor(g["freq_lut"], device=dev), seg,
             min_cov=5, min_covR=50, rarefied_draws=50,
             m_stride=int(g[f"{tag}/m_stride"]))
-        got = CC.compact_from_full(full, M, L)
+        got = one_scaffold(CC.compact_from_full(full, seg))
         torch.cuda.synchronize()
         want = {grp: {} for grp in ("rows", "agg", "linkage", "masks")}
         for k, v in g.items():
@@ -369,22 +398,253 @@ def phase_compact(torch, card):
 
     times = {}
     for M, L in ((8, 40000), (8, 1 << 20)):
-        full = full_for(M, L, 7)
-        agg, cf, rf = CC.mm_aggregates(full)
-        med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"])
+        full, seg = full_for(M, L, 7)
+        agg, cf, rf = CC.mm_aggregates(full, seg)
+        med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"],
+                    seg)
         times[(M, L)] = t = {
-            "select_rows": timed_pair(torch, lambda: CC.select_rows(full),
-                                      lambda: S.select_rows(full), 20, 5),
+            "select_rows": timed_pair(
+                torch, lambda: CC.select_rows(full, seg),
+                lambda: S.select_rows_seg(full, seg), 20, 5),
             "mm_aggregates": timed_pair(
-                torch, lambda: CC.mm_aggregates(full),
-                lambda: S.mm_aggregates(full), 20, 5),
+                torch, lambda: CC.mm_aggregates(full, seg),
+                lambda: S.mm_aggregates_seg(full, seg), 20, 5),
             "masked_median": timed_pair(
                 torch, lambda: CC.masked_median(*med_args),
-                lambda: S.masked_medians(*med_args), 20, 5)}
+                lambda: S.masked_medians_seg(*med_args), 20, 5)}
         log("compact", f"time M={M} L={L} on {card}: " + "; ".join(
             f"{k} kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms"
             for k, v in t.items()))
     return errs, times[(8, 1 << 20)]
+
+
+def segment_inputs(M, lengths, seed):
+    """Site-stats inputs of a chunk: scaffolds of `lengths` laid end to
+    end ([M, 4, sum(lengths)] counts, ref codes)."""
+    import numpy as np
+    from instrain_tpu_torch.synth import site_stats_inputs
+    cs, rs = [], []
+    for i, L in enumerate(lengths):
+        if L >= 40:
+            c, r = site_stats_inputs(M, L, seed + i)
+        else:
+            rng = np.random.default_rng(seed + i)
+            c = rng.integers(0, 90, (M, 4, L)).astype(np.int32)
+            r = rng.integers(0, 5, L).astype(np.uint8)
+        cs.append(c)
+        rs.append(r)
+    return np.concatenate(cs, axis=2), np.concatenate(rs)
+
+
+def phase_batch(torch, card):
+    """The batch engine's kernels (K5): clonR and the three K4 kernels
+    with a segment table, against their plain versions and, through the
+    engine's chunk path, against the JAX package's batch golden file."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.kernels import sitestats as S
+    from instrain_tpu_torch.kernels.nullmodel import \
+        analytic_null_thresholds
+    from instrain_tpu_torch.profile import compact as PC
+    from instrain_tpu_torch.profile.pileup import ScaffoldPileup
+
+    dev = torch.device("cuda")
+    nl = torch.as_tensor(analytic_null_thresholds(max_coverage=10000),
+                         device=dev)
+    fl = torch.as_tensor(S.freq_min_count_lut(0.05, max_coverage=10000),
+                         device=dev)
+
+    def chunk(M, lengths, seed):
+        counts, ref = segment_inputs(M, lengths, seed)
+        c, r = torch.from_numpy(counts).to(dev), torch.from_numpy(ref).to(dev)
+        seg = S.Segments(lengths, PC._fold_keys(42, range(seed, seed + len(
+            lengths))), dev)
+        Mp = max(-(-M // 8) * 8, 8)
+        full = C.site_stats(c, r, nl, fl, seg, m_stride=Mp)
+        return c, r, full, seg, Mp
+
+    errs = dict.fromkeys(("site_stats", "clonR", "select_rows",
+                          "mm_aggregates", "masked_median"), 0.0)
+    for M, lengths in ((8, [1, 1237, 40000, 1_048_577, 300, 4096]),
+                       (33, [160, 1, 5000, 40000]), (1, [7, 3000])):
+        c, r, full, seg, Mp = chunk(M, lengths, M)
+        core_p = C.site_stats_core_plain(c, r, nl, fl, 5, 50)
+        torch.cuda.synchronize()
+        errs["site_stats"] = max(errs["site_stats"], compare(
+            core_p, full, f"site_stats chunk M={M}"))
+        errs["clonR"] = max(errs["clonR"], compare_exact(
+            {"clonR": S.clonR_values_seg(full["cum"], full["total"],
+                                         full["clonR_set"], seg, 50, Mp)},
+            {"clonR": full["clonR"]}, f"clonR chunk M={M}"))
+        rows, link = CC.select_rows(full, seg)
+        agg, cf, rf = CC.mm_aggregates(full, seg)
+        med = CC.masked_median(full["total"], cf, rf, agg["counted"],
+                               agg["rarefied"], seg)
+        torch.cuda.synchronize()
+        prows, plink = S.select_rows_seg(full, seg)
+        pagg, pcf, prf = S.mm_aggregates_seg(full, seg)
+        pmed = S.masked_medians_seg(full["total"], pcf, prf,
+                                    pagg["counted"], pagg["rarefied"], seg)
+        tag = f"chunk M={M} L={lengths}"
+        errs["select_rows"] = max(errs["select_rows"], compare_exact(
+            {"rows": prows, "linkage": plink},
+            {"rows": rows, "linkage": link}, f"select_rows {tag}"))
+        errs["mm_aggregates"] = max(errs["mm_aggregates"], compare_exact(
+            {"agg": pagg, "clon_f": pcf, "clonR_f": prf},
+            {"agg": agg, "clon_f": cf, "clonR_f": rf},
+            f"mm_aggregates {tag}"))
+        errs["masked_median"] = max(errs["masked_median"], compare_exact(
+            pmed, med, f"masked_median {tag}"))
+        log("batch", f"{tag}: site_stats, clonR, select_rows, "
+                     f"mm_aggregates, masked_median == plain bit for bit "
+                     f"({rows['n_rows']} SNP rows, {link['n_pos']} SNV "
+                     f"positions, {int(full['clonR_set'].sum())} drawn "
+                     f"cells)")
+        del full, core_p
+
+    golden = os.path.join(ROOT, "tests", "data", "torch_batch_golden.npz")
+    with np.load(golden) as z:
+        g = {k: z[k] for k in z.files}
+    for name in sorted({k.split("/")[0] for k in g if "/" in k}):
+        Mp = int(g[f"{name}/m_stride"])
+        n = len({k.split("/")[1] for k in g
+                 if k.startswith(name + "/") and k.split("/")[1].isdigit()})
+        items, Ms = [], []
+        for s in range(n):
+            counts = g[f"{name}/{s}/counts"]
+            M, _, L = counts.shape
+            cp = np.zeros((Mp, 4, L), np.int32)
+            cp[:M] = counts
+            items.append((s, ScaffoldPileup(name=f"s{s}", rid=s, length=L,
+                                            mm_values=np.arange(Mp),
+                                            counts=cp),
+                          g[f"{name}/{s}/ref"]))
+            Ms.append(M)
+        keys = np.stack([g[f"{name}/{s}/key"] for s in range(n)])
+        fold, PC._fold_keys = PC._fold_keys, lambda seed, rids: keys
+        try:
+            res = PC._finish_chunk(PC._dispatch_chunk(
+                items, torch.as_tensor(g["null_lut"], device=dev),
+                torch.as_tensor(g["freq_lut"], device=dev), 5, 50, 0, False,
+                dev))
+        finally:
+            PC._fold_keys = fold
+        for s, st in res:
+            M = Ms[s]
+            want, got = {}, {}
+            for grp in ("rows", "agg", "linkage", "masks"):
+                d = getattr(st, grp)
+                for k, v in g.items():
+                    parts = k.split("/")
+                    if parts[:3] != [name, str(s), grp]:
+                        continue
+                    key = f"{grp}/{parts[3]}"
+                    want[key] = (int(v) if v.ndim == 0
+                                 else torch.from_numpy(v))
+                    b = d[parts[3]]
+                    if grp == "agg" or parts[3] in ("cum", "present"):
+                        b = b[:M]
+                    got[key] = (int(b) if parts[3] in ("n_rows", "n_pos")
+                                else torch.from_numpy(np.ascontiguousarray(
+                                    b)))
+            compare_exact(want, got, f"batch golden {name}/{s}")
+        log("batch", f"golden {name}: {n} scaffolds of one chunk (M "
+                     f"{Ms}) equal the JAX package's batch engine bit for "
+                     f"bit")
+
+    # times at the metagenome's chunk shape: as many 40 kb scaffolds at
+    # M = 8 as one chunk holds
+    S_chunk = PC.CHUNK_CELLS // (8 * 40000)
+    c, r, full, seg, Mp = chunk(8, [40000] * S_chunk, 7)
+    agg, cf, rf = CC.mm_aggregates(full, seg)
+    med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"])
+    args = (full["cum"], full["total"], full["clonR_set"], seg, 50, Mp)
+    times = {
+        "site_stats": timed_pair(
+            torch, lambda: C.site_stats_core(c, r, nl, fl, 5, 50),
+            lambda: C.site_stats_core_plain(c, r, nl, fl, 5, 50), 20, 1),
+        "clonR": timed_pair(torch, lambda: C.clonR(*args),
+                            lambda: C.clonR_plain(*args), 20, 1),
+        "select_rows": timed_pair(torch, lambda: CC.select_rows(full, seg),
+                                  lambda: S.select_rows_seg(full, seg), 20,
+                                  1),
+        "mm_aggregates": timed_pair(
+            torch, lambda: CC.mm_aggregates(full, seg),
+            lambda: S.mm_aggregates_seg(full, seg), 20, 1),
+        "masked_median": timed_pair(
+            torch, lambda: CC.masked_median(*med_args, seg),
+            lambda: S.masked_medians_seg(*med_args, seg), 20, 1)}
+    log("batch", f"time, one chunk of {S_chunk} x 40 kb at M=8 on {card}: "
+                 + "; ".join(f"{k} kernel {v[0]:.4f} ms vs plain "
+                             f"{v[1]:.4f} ms" for k, v in times.items()))
+    return errs, times
+
+
+def compare_nan_equal(want, got, what):
+    """Bit for bit with every NaN equal to every NaN (the card and XLA
+    write different NaN payloads). Returns the largest absolute float
+    difference."""
+    import torch
+    check(set(want) == set(got), f"{what}: keys {set(want) ^ set(got)}")
+    err = 0.0
+    for k, a in want.items():
+        b = got[k]
+        a = torch.as_tensor(a).to(b.device)
+        check(a.dtype == b.dtype and tuple(a.shape) == tuple(b.shape),
+              f"{what}/{k}: {a.dtype}{tuple(a.shape)} vs "
+              f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype.is_floating_point:
+            check(torch.equal(torch.isnan(a), torch.isnan(b)),
+                  f"{what}/{k}: NaN masks differ")
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+        check(torch.equal(_bits(a), _bits(b)),
+              f"{what}/{k}: not bit-identical (max abs err {err})")
+    return err
+
+
+def phase_linkage(torch, card):
+    """The linkage kernel (K6) against its plain version and the JAX
+    package's golden file, every column bit for bit."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    from instrain_tpu_torch.profile.compact import _fold_keys
+    from instrain_tpu_torch.synth import ld_inputs
+
+    dev = torch.device("cuda")
+    inputs = ("e_idx", "mm_idx", "combo", "c1", "c2", "present1",
+              "present2")
+    golden = os.path.join(ROOT, "tests", "data", "torch_linkage_golden.npz")
+    with np.load(golden) as z:
+        g = {k: z[k] for k in z.files}
+    err = 0.0
+    for tag in sorted({k.split("/")[0] for k in g}):
+        args = [torch.from_numpy(g[f"{tag}/{k}"]).to(dev) for k in inputs]
+        rest = (g[f"{tag}/key"], int(g[f"{tag}/min_snp"]),
+                int(g[f"{tag}/m_stride"]))
+        got = CL.ld(*args, *rest)
+        torch.cuda.synchronize()
+        want = {k.split("/")[-1]: torch.from_numpy(v) for k, v in g.items()
+                if k.startswith(f"{tag}/out/")}
+        err = max(err, compare_nan_equal(want, got, f"ld golden {tag}"))
+        err = max(err, compare_nan_equal(CL.ld_plain(*args, *rest), got,
+                                         f"ld plain {tag}"))
+        log("linkage", f"golden {tag}: all {len(want)} columns equal the JAX "
+                       f"package and the plain version bit for bit "
+                       f"({int(got['valid'].sum())} valid cells)")
+    for E, M, N in ((1, 1, 30), (5000, 12, 150_000), (64, 33, 9000)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in ld_inputs(E, M, N, E + M)]
+        rest = (_fold_keys(2, [E])[0], 20, -(-M // 8) * 8)
+        got = CL.ld(*args, *rest)
+        torch.cuda.synchronize()
+        err = max(err, compare_nan_equal(CL.ld_plain(*args, *rest), got,
+                                         f"ld E={E} M={M}"))
+        log("linkage", f"E={E} M={M} N={N}: ld == plain bit for bit "
+                       f"({int(got['valid'].sum())} valid cells)")
+    return err
 
 
 # ---------------------------------------------------------------- phase 4
@@ -398,12 +658,12 @@ def read_table(out, name):
                        else 0)
 
 
-def run_profile(bam, fasta, out, engine):
+def run_profile(bam, fasta, out, engine, device="cuda"):
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.profile import pipeline
     pipeline.PHASES = {}
     t0 = time.perf_counter()
-    rc = main(["profile", bam, fasta, "-o", out, "--device", "cuda",
+    rc = main(["profile", bam, fasta, "-o", out, "--device", device,
                "--engine", engine] + FLAGS)
     torch_sync()
     wall = time.perf_counter() - t0
@@ -443,44 +703,36 @@ def check_outputs(out, n_scaffolds, cov):
 
 
 class D2HBytes:
-    """Counts the bytes each engine brings back to the host per scaffold,
-    from the host arrays its stats object holds (every one of them came
-    over from the device), by wrapping the two engine calls the pipeline
-    makes."""
+    """Counts what the engines bring back to the host: for the hybrid and
+    batch engines, per chunk the 8-byte read of the row and position
+    counts and the one packed copy of its outputs (a hybrid scaffold is a
+    chunk of one); for the dense engine, the host arrays its stats hold
+    (every one came over from the device)."""
 
     def __init__(self):
         from instrain_tpu_torch.profile import compact, pipeline
         self.mods = (compact, pipeline)
         self.bytes = []
 
-    def _nbytes(self, tree):
-        if isinstance(tree, dict):
-            return sum(self._nbytes(v) for v in tree.values())
-        return getattr(tree, "nbytes", 0)
-
     def __enter__(self):
         compact, pipeline = self.mods
-        self.saved = (compact.run_site_stats_hybrid, pipeline.run_site_stats)
+        self.saved = (compact._finish_chunk, pipeline.run_site_stats)
 
-        def hybrid(*a, **k):
-            st = self.saved[0](*a, **k)
-            # + the 8-byte read of the row and position counts
-            self.bytes.append(8 + sum(self._nbytes(d) for d in (
-                st.rows, st.agg, st.linkage, st.masks)) +
-                st.clon.nbytes + st.clonR.nbytes)
-            return st
+        def finish(chunk):
+            self.bytes.append(8 + chunk.host.numel())
+            return self.saved[0](chunk)
 
         def dense(*a, **k):
             st = self.saved[1](*a, **k)
-            self.bytes.append(self._nbytes(st.arrays))
+            self.bytes.append(sum(v.nbytes for v in st.arrays.values()))
             return st
 
-        compact.run_site_stats_hybrid, pipeline.run_site_stats = hybrid, dense
+        compact._finish_chunk, pipeline.run_site_stats = finish, dense
         return self
 
     def __exit__(self, *exc):
         compact, pipeline = self.mods
-        compact.run_site_stats_hybrid, pipeline.run_site_stats = self.saved
+        compact._finish_chunk, pipeline.run_site_stats = self.saved
         return False
 
 
@@ -514,10 +766,45 @@ def compare_tables(a_dir, b_dir, skip=()):
     return diffs
 
 
+def tsvs(out):
+    return {t: open(os.path.join(out, "output",
+                                 f"{os.path.basename(out)}_{t}.tsv")).read()
+            for t in ("SNVs", "scaffold_info", "linkage", "mapping_info")}
+
+
+def device_copies(torch, fn):
+    """Run fn under torch.profiler: {"DtoH"|"HtoD": (copies, ms),
+    "kernels": (launches, ms)} of device time, or None when the profiler
+    records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"DtoH": [0, 0.0], "HtoD": [0, 0.0], "kernels": [0, 0.0]}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = ("DtoH" if "DtoH" in e.key else "HtoD" if "HtoD" in e.key
+               else None if "Memcpy" in e.key or "Memset" in e.key
+               else "kernels")
+        if key:
+            out[key][0] += e.count
+            out[key][1] += us / 1000.0
+    return out if out["kernels"][0] else None
+
+
 def phase_end_to_end(torch):
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
     from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.profile import compact as PC
+    from instrain_tpu_torch.profile import linkage as PL
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
     from instrain_tpu_torch.synth import synth
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -527,23 +814,20 @@ def phase_end_to_end(torch):
     small = os.path.join(WORK, "small")
     os.makedirs(small)
     fasta, bam, _ = synth(small, S=4, L=5000, COV=60, seed=3)
-    for engine in ("dense", "hybrid"):
+    for engine in ("dense", "hybrid", "batch"):
         outs = {}
         for device in ("cuda", "cpu"):
             outs[device] = os.path.join(small, f"{engine}_{device}.IS")
             check(main(["profile", bam, fasta, "-o", outs[device],
                         "--device", device, "--engine", engine] +
                        FLAGS) == 0, f"small {engine} {device} run failed")
-        for t in ("SNVs", "scaffold_info", "linkage", "mapping_info"):
-            texts = [open(os.path.join(o, "output",
-                                       f"{os.path.basename(o)}_{t}.tsv")
-                          ).read() for o in outs.values()]
-            check(texts[0] == texts[1],
-                  f"small input, --engine {engine}: {t} differs GPU vs CPU")
+        check(tsvs(outs["cuda"]) == tsvs(outs["cpu"]),
+              f"small input, --engine {engine}: TSVs differ GPU vs CPU")
         log("e2e", f"small input (4 x 5 kb, 60x), --engine {engine}: GPU "
                    f"TSVs byte-identical to the --device cpu run")
 
-    cases = [("metagenome", 128, 40_000, 30), ("isolate", 1, 2_500_000, 60)]
+    cases = [("metagenome", 128, 40_000, 30), ("isolate", 1, 2_500_000, 60),
+             ("deep", 1, 250_000, 3000)]
     data = {}
     for name, S, L, cov in cases:
         d = os.path.join(WORK, name)
@@ -554,61 +838,166 @@ def phase_end_to_end(torch):
                    f"{data[name][2]} pairs): "
                    f"{time.perf_counter() - t0:.2f} s")
 
-    def drive(engine):
-        """Both inputs through one engine, launch counts reset just
-        before and read just after."""
-        C.reset_launch_counts()
-        CC.reset_launch_counts()
-        outs = {}
-        for name, S, L, cov in cases:
-            fasta, bam, n_pairs = data[name]
-            out = outs[name] = os.path.join(WORK, name, f"{name}_{engine}.IS")
-            with D2HBytes() as d2h:
-                wall, phases = run_profile(bam, fasta, out, engine)
-            rows, snvs = check_outputs(out, S, cov)
-            mi = read_table(out, "mapping_info")
-            filtered = int(mi["filtered_pairs"].iloc[0])
-            check(filtered > 0.9 * n_pairs, f"{name}: {filtered} of "
-                                            f"{n_pairs} pairs pass filtering")
-            log("e2e", f"{name} --engine {engine}: wall {wall:.2f} s, "
-                       f"{filtered} filtered pairs -> "
-                       f"{filtered / wall:.0f} filtered pairs/s; rows "
-                       f"{rows}; {snvs} SNV sites")
-            log("e2e", f"{name} --engine {engine} phases (s): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in phases.items()))
+    def run(name, engine, device="cuda"):
+        S, L, cov = next(c[1:] for c in cases if c[0] == name)
+        fasta, bam, n_pairs = data[name]
+        out = os.path.join(WORK, name, f"{name}_{engine}_{device}.IS")
+        with D2HBytes() as d2h:
+            wall, phases = run_profile(bam, fasta, out, engine, device)
+        rows, snvs = check_outputs(out, S, cov)
+        mi = read_table(out, "mapping_info")
+        filtered = int(mi["filtered_pairs"].iloc[0])
+        check(filtered > 0.9 * n_pairs, f"{name}: {filtered} of "
+                                        f"{n_pairs} pairs pass filtering")
+        log("e2e", f"{name} --engine {engine} --device {device}: wall {wall:.2f} s, {filtered} "
+                   f"filtered pairs -> {filtered / wall:.0f} filtered "
+                   f"pairs/s; rows {rows}; {snvs} SNV sites")
+        log("e2e", f"{name} --engine {engine} phases (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()))
+        if d2h.bytes:
             log("e2e", f"{name} --engine {engine} D2H: {sum(d2h.bytes)} "
                        f"bytes over {len(d2h.bytes)} engine calls, "
                        f"{sum(d2h.bytes) / len(d2h.bytes):.0f} per call")
-        return outs, {**C.launch_counts(), **CC.launch_counts()}
+        return out
 
-    # the main path: --engine auto, which is the hybrid engine on the card
-    n_scaffolds = sum(S for _, S, _, _ in cases)
-    hybrid, launches = drive("auto")
-    log("e2e", f"launches in the main path: {launches} "
-               f"({n_scaffolds} scaffolds)")
-    for k, n in launches.items():
-        check(n >= n_scaffolds,
-              f"kernel {k} launched {n} times for {n_scaffolds} scaffolds")
+    # the main paths, each through --engine auto with every launch count
+    # reset just before it and read just after: the metagenome (the batch
+    # engine), the isolate (hybrid) and the deep input (hybrid, its
+    # linkage past the device engine's bound)
+    linkage_choice = []
+    resolve = PL.resolve_linkage_engine
 
-    # the dense engine, with its position chunks
-    dense, dense_launches = drive("dense")
-    chunks = sum(S * math.ceil(L / (1 << 20)) for _, S, L, _ in cases)
-    log("e2e", f"launches in the dense runs: {dense_launches} "
-               f"({chunks} scaffold chunks)")
-    for k, n in dense_launches.items():
-        want = chunks if k in ("site_stats", "clonR") else 0
-        check(n == want, f"dense runs: kernel {k} launched {n} times, "
-                         f"expected {want}")
-    compare_tables(hybrid["metagenome"], dense["metagenome"])
+    def record(engine, device, n_pairs):
+        choice = resolve(engine, device, n_pairs)
+        linkage_choice.append((n_pairs, choice))
+        return choice
+
+    ld_args = []
+    device_ld_args = PL._device_ld_args
+
+    def keep_ld_args(*a):
+        ld_args.append(device_ld_args(*a))
+        return ld_args[-1]
+
+    five = ("site_stats", "clonR", "select_rows", "mm_aggregates",
+            "masked_median")
+    outs, launches = {}, dict.fromkeys(five + ("ld",), 0)
+    PL.resolve_linkage_engine = record
+    PL._device_ld_args = keep_ld_args
+    try:
+        for name, S, _, _ in cases:
+            linkage_choice.clear()
+            C.reset_launch_counts()
+            CC.reset_launch_counts()
+            CL.reset_launch_counts()
+            outs[name] = run(name, "auto")
+            got = {**C.launch_counts(), **CC.launch_counts(),
+                   **CL.launch_counts()}
+            if name == "metagenome":
+                # the batch engine's planned chunks, from the profiled
+                # scaffolds (in run order) and their mm levels
+                pdir = ProfileDir(outs[name])
+                cov_t = pdir.get("covT")
+                shapes = [(len(cov_t[n]), 40_000)
+                          for n in pdir.get("scaffold_list")]
+                check(len(shapes) == S,
+                      f"{len(shapes)} metagenome scaffolds profiled")
+                want = len(PC.plan_chunks(shapes))
+                check(want < S, f"{want} chunks for {S} scaffolds")
+                plan = (f"{want} planned chunks (mm levels "
+                        f"{sorted(set(m for m, _ in shapes))})")
+            else:
+                want, plan = 1, "one scaffold"
+            past = [n for n, choice in linkage_choice if choice == "device"]
+            log("e2e", f"{name} launches: {got}; {S} scaffold(s) in {plan}; "
+                       f"captured pairs per scaffold up to "
+                       f"{max(n for n, _ in linkage_choice)}, "
+                       f"{len(past)} past the {PL.DEVICE_MIN_PAIRS} bound "
+                       f"of the device linkage engine")
+            for k in five:
+                check(got[k] == want, f"{name}: kernel {k} launched "
+                                      f"{got[k]} times, planned {want}")
+            check(got["ld"] == len(past),
+                  f"{name}: ld launched {got['ld']} times for {len(past)} "
+                  f"scaffolds past the bound")
+            launches = {k: launches[k] + got[k] for k in launches}
+    finally:
+        PL.resolve_linkage_engine = resolve
+        PL._device_ld_args = device_ld_args
+    check(linkage_choice and linkage_choice[-1][1] == "device",
+          f"the deep input's linkage ran on the host engine "
+          f"({linkage_choice[-1:]})")
+    log("e2e", f"launches in the main paths, summed: {launches}")
+
+    # the metagenome through the hybrid engine: the same bytes
+    hybrid = run("metagenome", "hybrid")
+    check(tsvs(hybrid) == tsvs(outs["metagenome"]),
+          "metagenome: --engine hybrid TSVs differ from --engine batch")
+    log("e2e", "metagenome: --engine hybrid TSVs byte-identical to the "
+               "batch engine's")
+    # device copies and busy time of both engines on the metagenome
+    for engine in ("batch", "hybrid"):
+        fasta, bam, _ = data["metagenome"]
+        prof_out = os.path.join(WORK, "metagenome", f"prof_{engine}.IS")
+        t0 = time.perf_counter()
+        got = device_copies(torch, lambda: run_profile(
+            bam, fasta, prof_out, engine, "cuda"))
+        wall = time.perf_counter() - t0
+        if got is None:
+            log("e2e", f"metagenome --engine {engine} under torch.profiler: "
+                       f"no device activity recorded (not measured)")
+            continue
+        log("e2e", f"metagenome --engine {engine} under torch.profiler "
+                   f"(wall {wall:.2f} s): D2H {got['DtoH'][0]} copies "
+                   f"{got['DtoH'][1]:.3f} ms, H2D {got['HtoD'][0]} copies "
+                   f"{got['HtoD'][1]:.3f} ms, kernels {got['kernels'][0]} "
+                   f"launches {got['kernels'][1]:.3f} ms; device busy "
+                   f"{got['DtoH'][1] + got['HtoD'][1] + got['kernels'][1]:.3f}"
+                   f" ms")
+
+    # the deep input on the CPU with the device linkage engine forced
+    PL.resolve_linkage_engine = lambda engine, device, n_pairs: "device"
+    try:
+        cpu = run("deep", "hybrid", "cpu")
+    finally:
+        PL.resolve_linkage_engine = resolve
+    check(tsvs(cpu) == tsvs(outs["deep"]),
+          "deep input: the --device cpu run (device linkage forced) "
+          "differs from the GPU run")
+    n_link = len(read_table(outs["deep"], "linkage"))
+    log("e2e", f"deep input: --device cpu with the device linkage engine "
+               f"forced: TSVs byte-identical to the GPU run ({n_link} "
+               f"linkage rows)")
+
+    # the dense engine with its 1 Mb position chunks, every launch count
+    # reset just before each run and read just after: the metagenome (a
+    # chunk per scaffold) against the batch engine, and the isolate (three
+    # chunks) against the hybrid engine
+    dense = {}
+    for name, S, L, _ in cases[:2]:
+        C.reset_launch_counts()
+        CC.reset_launch_counts()
+        CL.reset_launch_counts()
+        dense[name] = run(name, "dense")
+        got = {**C.launch_counts(), **CC.launch_counts(),
+               **CL.launch_counts()}
+        chunks = S * -(-L // (1 << 20))
+        log("e2e", f"{name} --engine dense launches: {got} ({chunks} "
+                   f"scaffold chunks)")
+        for k, n in got.items():
+            want = chunks if k in ("site_stats", "clonR") else 0
+            check(n == want, f"{name} --engine dense: kernel {k} launched "
+                             f"{n} times, expected {want}")
+    compare_tables(outs["metagenome"], dense["metagenome"])
     rare = ("nucl_diversity_rarefied", "nucl_diversity_rarefied_median")
-    diffs = compare_tables(hybrid["isolate"], dense["isolate"], skip=rare)
-    log("e2e", "metagenome: hybrid and dense tables agree within the "
-               "reference's cross-engine tolerances; isolate: the same, "
-               "except the rarefied columns, drawn per 1 Mb chunk by the "
-               "dense engine and once per scaffold by the hybrid engine "
-               "(max abs difference " + ", ".join(
+    diffs = compare_tables(outs["isolate"], dense["isolate"], skip=rare)
+    log("e2e", "metagenome: dense and batch tables agree within the "
+               "reference's cross-engine tolerances; isolate: dense and "
+               "hybrid the same, except the rarefied columns, drawn per 1 Mb "
+               "chunk by the dense engine and once per scaffold by the "
+               "hybrid engine (max abs difference " + ", ".join(
                    f"{k} {v:.3g}" for k, v in diffs.items()) + ")")
-    return launches
+    return launches, ld_args[-1]
 
 
 # ---------------------------------------------------------------- main
@@ -641,13 +1030,27 @@ def main():
 
     card = phase_environment(torch)
     phase_build()
-    errs, times = phase_kernels(torch, card)
-    cerrs, ctimes = phase_compact(torch, card)
+    errs, _ = phase_kernels(torch, card)
+    cerrs, _ = phase_compact(torch, card)
     errs.update(cerrs)
-    times.update(ctimes)
-    launches = phase_end_to_end(torch)
+    berrs, times = phase_batch(torch, card)
+    errs = {k: max(v, berrs.get(k, 0.0)) for k, v in errs.items()}
+    errs["ld"] = phase_linkage(torch, card)
+    launches, ld_args = phase_end_to_end(torch)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
+
+    # the ld kernel at the deep input's shapes, as its run gave them
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    errs["ld"] = max(errs["ld"], compare_nan_equal(
+        CL.ld_plain(*ld_args), CL.ld(*ld_args), "ld, deep input"))
+    times["ld"] = timed_pair(torch, lambda: CL.ld(*ld_args),
+                             lambda: CL.ld_plain(*ld_args), 20, 3)
+    E, M, _ = ld_args[3].shape
+    log("linkage", f"time at the deep input's shape (E={E} edges, M={M}, "
+                   f"{ld_args[0].numel()} pairs) on {card}: ld kernel "
+                   f"{times['ld'][0]:.4f} ms vs plain {times['ld'][1]:.4f} "
+                   f"ms")
 
     kernels = [
         {"name": "site_stats", "route": "cuda",
@@ -670,6 +1073,12 @@ def main():
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, line in (("select_rows", 325), ("mm_aggregates", 346),
                            ("masked_median", 379))
+    ] + [
+        {"name": "ld", "route": "cuda",
+         "source": "instrain_tpu_torch/csrc/linkage.cu",
+         "replaces": "instrain_tpu/kernels/linkage.py:29",
+         "launches": launches["ld"], "max_abs_err": errs["ld"],
+         "ms": times["ld"][0], "plain_ms": times["ld"][1]}
     ]
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -140,9 +140,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "dense outputs to the host), hybrid (plus the "
                         "device compaction, so only table-ready outputs "
                         "come back; a scaffold whose padded M x L exceeds "
-                        "2^27 cells runs dense), or auto: hybrid on "
-                        "--device cuda, dense on --device cpu (batch and "
-                        "pallas are not ported yet)")
+                        "2^27 cells runs dense), batch (hybrid over chunks "
+                        "of many scaffolds per launch), or auto: on "
+                        "--device cuda batch from 16 kept scaffolds on and "
+                        "hybrid below, dense on --device cpu (pallas is "
+                        "not ported: use dense)")
     g.add_argument("--mesh_devices", default=0, type=int,
                    help="multi-GPU sharding (not ported yet: raises "
                         "above 1)")

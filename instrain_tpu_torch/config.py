@@ -66,7 +66,7 @@ class ProfileConfig:
     variant: VariantConfig = field(default_factory=VariantConfig)
 
     # execution (no reference equivalent)
-    engine: str = "auto"               # auto|dense (others: see ROADMAP.md)
+    engine: str = "auto"               # auto|dense|hybrid|batch
     seed: int = 42                     # key for the rarefied draws
     mesh_devices: int = 0              # multi-GPU: not ported (ROADMAP.md)
     # where the kernels run: "cuda" (a GPU is required; no fallback) or

@@ -1,13 +1,18 @@
 // Rarefied clonality: the Hopper port of
 // instrain_tpu/kernels/sitestats.py:_clonR_values (:136-166) with its
-// counter-based generator _threefry2x32 / _ctr_uniform (:75-133).
+// counter-based generator _threefry2x32 / _ctr_uniform (:75-133), over a
+// chunk of scaffolds laid end to end (segments.cuh): the batched form of
+// site_stats_compact_batch (:446-465), one key per scaffold.
 //
-// One thread per (m, position) cell. A cell outside clonR_set (absent
+// One thread per (m, position) cell: one block per (tile of a segment's
+// positions, mm level). A cell outside clonR_set (absent
 // level, or coverage below the rarefied coverage) gets NaN and draws
 // nothing. A set cell rebuilds its f32 cdf from cum and total (p0,
 // p0 + p1, (p0 + p1) + p2 — the JAX order), then takes `draws`
 // categorical draws: draw d uses the first Threefry-2x32 word at counter
-// (d * m_stride + m, p) under the scaffold key, turned into a uniform as
+// (d * m_stride + m, p) under the segment's key, with p counted from the
+// segment's start (as the JAX batch engine counts it per scaffold),
+// turned into a uniform as
 // bitcast((b0 >> 9) | 0x3F800000) - 1; its category is the number of
 // k < 3 with u > cdf[k]. The result is sum((count_b / draws)^2) in the
 // order XLA's CPU backend evaluates the JAX function: r_b = count_b times
@@ -29,53 +34,35 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segments.cuh"
+#include "threefry.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-    return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void four_rounds(uint32_t& x0, uint32_t& x1,
-                                            int r0, int r1, int r2, int r3) {
-    x0 += x1; x1 = rotl32(x1, r0); x1 ^= x0;
-    x0 += x1; x1 = rotl32(x1, r1); x1 ^= x0;
-    x0 += x1; x1 = rotl32(x1, r2); x1 ^= x0;
-    x0 += x1; x1 = rotl32(x1, r3); x1 ^= x0;
-}
-
-// Threefry-2x32, 20 rounds; returns the first output word
+// the first output word of Threefry-2x32 (threefry.cuh)
 __device__ __forceinline__ uint32_t threefry2x32_w0(uint32_t k0, uint32_t k1,
                                                    uint32_t x0, uint32_t x1) {
-    const uint32_t k2 = 0x1BD11BDAu ^ k0 ^ k1;
-    x0 += k0; x1 += k1;
-    four_rounds(x0, x1, 13, 15, 26, 6);
-    x0 += k1; x1 += k2 + 1u;
-    four_rounds(x0, x1, 17, 29, 16, 24);
-    x0 += k2; x1 += k0 + 2u;
-    four_rounds(x0, x1, 13, 15, 26, 6);
-    x0 += k0; x1 += k1 + 3u;
-    four_rounds(x0, x1, 17, 29, 16, 24);
-    x0 += k1; x1 += k2 + 4u;
-    four_rounds(x0, x1, 13, 15, 26, 6);
-    x0 += k2;
+    instrain::threefry2x32(k0, k1, x0, x1);
     return x0;
 }
 
 __global__ void clonr_kernel(const int32_t* __restrict__ cum,
                              const int64_t* __restrict__ total,
                              const bool* __restrict__ clonR_set, int M,
-                             int64_t L, uint32_t m_stride, uint32_t k0,
-                             uint32_t k1, int draws,
+                             int64_t L, instrain::Segments g,
+                             uint32_t m_stride, int draws,
                              float* __restrict__ clonR_out) {
-    const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (cell >= (int64_t)M * L) return;
+    const instrain::TilePos t = instrain::tile_position(g, blockIdx.x);
+    if (t.p_local >= t.len) return;
+    const int m = blockIdx.y;
+    const int64_t cell = (int64_t)m * L + t.p;
     if (!clonR_set[cell]) {
         clonR_out[cell] = __int_as_float(0x7fc00000);    // NaN
         return;
     }
-    const int m = (int)(cell / L);
-    const int64_t p = cell - (int64_t)m * L;
-    const int64_t c4 = (int64_t)m * 4 * L + p;
+    const uint64_t key = instrain::seg_key(g, t.s);
+    const uint32_t k0 = (uint32_t)(key >> 32), k1 = (uint32_t)key;
+    const int64_t c4 = (int64_t)m * 4 * L + t.p;
     const float denom = fmaxf((float)total[cell], 1.0f);
     const float p0 = __fdiv_rn((float)cum[c4], denom);
     const float p1 = __fdiv_rn((float)cum[c4 + L], denom);
@@ -87,7 +74,8 @@ __global__ void clonr_kernel(const int32_t* __restrict__ cum,
     int n0 = 0, n1 = 0, n2 = 0, n3 = 0;
     for (int d = 0; d < draws; ++d) {
         const uint32_t b0 = threefry2x32_w0(
-            k0, k1, (uint32_t)d * m_stride + (uint32_t)m, (uint32_t)p);
+            k0, k1, (uint32_t)d * m_stride + (uint32_t)m,
+            (uint32_t)t.p_local);
         const float u = __fsub_rn(__uint_as_float((b0 >> 9) | 0x3F800000u),
                                   1.0f);
         const int cat = (u > cdf0) + (u > cdf1) + (u > cdf2);
@@ -109,12 +97,13 @@ __global__ void clonr_kernel(const int32_t* __restrict__ cum,
 
 extern "C" int instrain_clonr(const void* cum, const void* total,
                               const void* clonR_set, int M, int64_t L,
-                              uint32_t m_stride, uint32_t k0, uint32_t k1,
-                              int draws, void* clonR, void* stream) {
-    const int threads = 256;
-    const int64_t blocks = ((int64_t)M * L + threads - 1) / threads;
-    clonr_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+                              const void* seg_table, int S, int64_t n_tiles,
+                              uint64_t key0, uint32_t m_stride, int draws,
+                              void* clonR, void* stream) {
+    clonr_kernel<<<dim3((unsigned)n_tiles, (unsigned)M), instrain::kTile, 0,
+                   (cudaStream_t)stream>>>(
         (const int32_t*)cum, (const int64_t*)total, (const bool*)clonR_set,
-        M, L, m_stride, k0, k1, draws, (float*)clonR);
+        M, L, instrain::segments(seg_table, S, L, key0), m_stride, draws,
+        (float*)clonR);
     return (int)cudaGetLastError();
 }

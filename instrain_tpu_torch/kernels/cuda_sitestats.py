@@ -9,9 +9,12 @@ Two kernels, CUDA C++ in csrc/, built with nvcc for sm_90a at first use
                    (pallas_call at :247) fused with the rest of
                    sitestats.py:site_stats (:173-299). Memory-bound; one
                    thread per position walks the mm levels in registers.
+                   Position-local, so a chunk of scaffolds laid end to end
+                   (the batch engine) runs through it as it is.
   clonR            csrc/clonr.cu — replaces sitestats.py:_clonR_values
-                   (:136-166). Integer-ALU-bound (Threefry-2x32); one
-                   thread per qualifying cell.
+                   (:136-166), per scaffold or per segment of a chunk
+                   (sitestats.Segments). Integer-ALU-bound
+                   (Threefry-2x32); one thread per qualifying cell.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, below) only
 because the tensor it was given lies on the CPU. For a CUDA tensor it
@@ -58,12 +61,13 @@ def _load():
             from ..build import cuda_kernels_library
             lib = ct.CDLL(cuda_kernels_library())
             P, I, I64, U32 = ct.c_void_p, ct.c_int, ct.c_int64, ct.c_uint32
+            U64 = ct.c_uint64
             lib.instrain_site_stats.restype = I
             lib.instrain_site_stats.argtypes = (
                 [P, P, P, P, I, I, I64, I, I] + [P] * 15 + [P])
             lib.instrain_clonr.restype = I
-            lib.instrain_clonr.argtypes = [P, P, P, I, I64, U32, U32, U32,
-                                           I, P, P]
+            lib.instrain_clonr.argtypes = [P, P, P, I, I64, P, I, I64, U64,
+                                           U32, I, P, P]
             lib.instrain_cuda_error_string.restype = ct.c_char_p
             lib.instrain_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -104,11 +108,11 @@ def site_stats_core_plain(counts, ref_codes, null_lut, freq_lut,
                             with_clonR=False)
 
 
-def clonR_plain(cum, total, clonR_set, key, rarefied_draws: int,
-                m_stride: int) -> torch.Tensor:
+def clonR_plain(cum, total, clonR_set, seg: plain.Segments,
+                rarefied_draws: int, m_stride: int) -> torch.Tensor:
     """Plain PyTorch version of the clonR kernel."""
-    return plain.clonR_values(cum, total, clonR_set, key, rarefied_draws,
-                              m_stride)
+    return plain.clonR_values_seg(cum, total, clonR_set, seg,
+                                  rarefied_draws, m_stride)
 
 
 # ---------------------------------------------------------------------------
@@ -159,16 +163,18 @@ def site_stats_core(counts, ref_codes, null_lut, freq_lut,
 site_stats_core.launches = 0
 
 
-def clonR(cum, total, clonR_set, key, rarefied_draws: int,
+def clonR(cum, total, clonR_set, seg: plain.Segments, rarefied_draws: int,
           m_stride: int) -> torch.Tensor:
     """Rarefied clonality [M, L] f32 (NaN outside clonR_set).
 
     cum int32 [M, 4, L], total int64 [M, L], clonR_set bool [M, L] (the
-    site_stats kernel's outputs); key uint32[2]; draw counter
-    (d * m_stride + m, p)."""
+    site_stats kernel's outputs); draw counter (d * m_stride + m, p). The
+    scaffolds of `seg` lie end to end on the position axis, each drawn
+    under its own key with p counted from its start (one scaffold:
+    single_segment)."""
     name = "clonR"
     if cum.device.type == "cpu":
-        return clonR_plain(cum, total, clonR_set, key, rarefied_draws,
+        return clonR_plain(cum, total, clonR_set, seg, rarefied_draws,
                            m_stride)
     _require(cum.device.type == "cuda", name,
              f"unsupported device {cum.device}")
@@ -180,18 +186,20 @@ def clonR(cum, total, clonR_set, key, rarefied_draws: int,
     _require(clonR_set.dtype == torch.bool and
              tuple(clonR_set.shape) == (M, L), name,
              "clonR_set must be bool [M, L]")
-    _require(rarefied_draws >= 1 and 0 < m_stride < 2 ** 32, name,
-             "bad draw count or counter stride")
+    _require(rarefied_draws >= 1 and 0 < m_stride < 2 ** 32 and
+             M < 65536, name, "bad draw count, counter stride or M")
     for t in (cum, total, clonR_set):
         _require(t.device == cum.device, name, "inputs on two devices")
         _require(t.is_contiguous(), name, "inputs must be contiguous")
-    k0, k1 = plain.key_words(key)
+    _require(seg.L == L and seg.device == cum.device, name,
+             "segment table does not match the inputs")
     out = torch.empty((M, L), dtype=torch.float32, device=cum.device)
     lib = _load()
     with torch.cuda.device(cum.device):
         rc = lib.instrain_clonr(cum.data_ptr(), total.data_ptr(),
-                                clonR_set.data_ptr(), M, L, m_stride, k0,
-                                k1, rarefied_draws, out.data_ptr(),
+                                clonR_set.data_ptr(), M, L, seg.table_ptr(),
+                                seg.S, seg.n_tiles, seg.key0, m_stride,
+                                rarefied_draws, out.data_ptr(),
                                 _stream(cum))
     _check(rc, name)
     clonR.launches += 1
@@ -199,6 +207,12 @@ def clonR(cum, total, clonR_set, key, rarefied_draws: int,
 
 
 clonR.launches = 0
+
+
+def single_segment(L: int, key, device) -> plain.Segments:
+    """The segment table of one scaffold of L positions under `key`
+    (uint32[2]; the compaction kernels read no key)."""
+    return plain.Segments([L], [plain.key_words(key)], device)
 
 
 def reset_launch_counts() -> None:
@@ -211,13 +225,14 @@ def launch_counts() -> Dict[str, int]:
             "clonR": clonR.launches}
 
 
-def site_stats(counts, ref_codes, null_lut, freq_lut, key,
+def site_stats(counts, ref_codes, null_lut, freq_lut, seg: plain.Segments,
                min_cov: int = 5, min_covR: int = 50,
                rarefied_draws: int = 50, m_stride: Optional[int] = None
                ) -> Dict[str, torch.Tensor]:
-    """sitestats.site_stats through the two kernels (same output dict).
-    Inputs are cast to the kernels' dtypes; the LUTs and ref codes move to
-    the counts' device."""
+    """sitestats.site_stats through the two kernels (same output dict), of
+    the chunk of scaffolds `seg` lays end to end (one scaffold under a
+    key: single_segment(L, key, device)). Inputs are cast to the kernels'
+    dtypes; the LUTs and ref codes move to the counts' device."""
     dev = counts.device
     counts = counts.to(torch.int32).contiguous()
     ref_codes = ref_codes.to(device=dev, dtype=torch.uint8).contiguous()
@@ -225,7 +240,7 @@ def site_stats(counts, ref_codes, null_lut, freq_lut, key,
     freq_lut = freq_lut.to(device=dev, dtype=torch.int32).contiguous()
     out = site_stats_core(counts, ref_codes, null_lut, freq_lut,
                           min_cov=min_cov, min_covR=min_covR)
-    out["clonR"] = clonR(out["cum"], out["total"], out["clonR_set"], key,
+    out["clonR"] = clonR(out["cum"], out["total"], out["clonR_set"], seg,
                          rarefied_draws,
                          counts.shape[0] if m_stride is None else m_stride)
     return out

@@ -417,3 +417,116 @@ def compact_from_full(full, M: int, L: int) -> Dict[str, Dict]:
                               agg["counted"], agg["rarefied"]))
     masks = {k: full[k] for k in ("cryptic", "any_snp", "bases_mask")}
     return dict(rows=rows, agg=agg, linkage=linkage, masks=masks)
+
+
+# ---------------------------------------------------------------------------
+# Chunks of scaffolds (K5): the counterpart of instrain_tpu/kernels/
+# sitestats.py:site_stats_compact_batch (:446-465). The JAX package pads a
+# chunk's scaffolds to one [S, Mp, 4, Lp] shape and vmaps over them; here
+# they lie end to end on the position axis, [M, 4, Ltot], so nothing is
+# padded to a common length (Segments). site_stats is position-local and
+# runs on the chunk as it is; the rarefied draws and the compaction work
+# per segment, each with its own key and with positions counted from the
+# segment's start. The plain versions below loop over the segments with
+# the one-scaffold functions above, which is what the JAX batch gives per
+# scaffold (its pos_ok mask keeps padded positions out of every
+# aggregate).
+
+TILE = 256              # positions per block of the tiled kernels (kTile)
+
+
+class Segments:
+    """The segment table of a chunk: S scaffolds of the given lengths laid
+    end to end, each with its uint32[2] key. `table` is the kernels' copy
+    on `device` (csrc/segments.cuh): offsets, first tiles and keys; a
+    chunk of one segment has none (None), and its kernels take the key
+    `key0` as an argument instead."""
+
+    def __init__(self, lengths, keys, device="cpu"):
+        lengths = np.asarray(lengths, dtype=np.int64).reshape(-1)
+        self.keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+        assert len(lengths) == len(self.keys) >= 1 and (lengths >= 1).all()
+        self.S = len(lengths)
+        self.off = np.concatenate([[0], np.cumsum(lengths)])
+        self.tile0 = np.concatenate([[0], np.cumsum(-(-lengths // TILE))])
+        self.L = int(self.off[-1])
+        self.n_tiles = int(self.tile0[-1])
+        packed = ((self.keys[:, 0].astype(np.uint64) << np.uint64(32)) |
+                  self.keys[:, 1].astype(np.uint64))
+        self.key0 = int(packed[0])
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # as the device of a tensor placed on "cuda" reads
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.table = None
+        if self.S > 1 and self.device.type == "cuda":
+            # from pinned memory on the current stream, so that the host
+            # does not wait for the stream's earlier work
+            self.table = torch.from_numpy(np.concatenate(
+                [self.off, self.tile0, packed.view(np.int64), [0]])
+            ).pin_memory().to(self.device, non_blocking=True)
+
+    def table_ptr(self):
+        """The table's device address for the kernels (None: one segment)."""
+        return None if self.table is None else self.table.data_ptr()
+
+    def bounds(self, s: int):
+        return int(self.off[s]), int(self.off[s + 1])
+
+
+def _slice_positions(full, a: int, b: int):
+    """The [a, b) positions of every array of a site_stats dict (the
+    position axis is the last)."""
+    return {k: v[..., a:b] for k, v in full.items()}
+
+
+def clonR_values_seg(cum, total, clonR_set, seg: Segments,
+                     rarefied_draws: int, m_stride: int):
+    """clonR_values per segment, under the segment's key."""
+    return torch.cat([clonR_values(cum[:, :, a:b], total[:, a:b],
+                                   clonR_set[:, a:b], seg.keys[s],
+                                   rarefied_draws, m_stride)
+                      for s, (a, b) in enumerate(map(seg.bounds,
+                                                     range(seg.S)))], dim=1)
+
+
+def select_rows_seg(full, seg: Segments):
+    """select_rows per segment, the records of all segments in segment
+    order (positions counted from each segment's start), with
+    rows["seg_start"] / linkage["seg_start"] [S + 1]: each segment's first
+    record and first SNV position."""
+    parts = [select_rows(_slice_positions(full, *seg.bounds(s)))
+             for s in range(seg.S)]
+    rows = {k: torch.cat([r[k] for r, _ in parts])
+            for k in parts[0][0] if k != "n_rows"}
+    link = dict(pos=torch.cat([lk["pos"] for _, lk in parts]),
+                cum=torch.cat([lk["cum"] for _, lk in parts], dim=2),
+                present=torch.cat([lk["present"] for _, lk in parts], dim=1))
+    for d, n in ((rows, "n_rows"), (link, "n_pos")):
+        counts = [(r if d is rows else lk)[n] for r, lk in parts]
+        d[n] = int(sum(counts))
+        d["seg_start"] = torch.tensor(np.concatenate([[0], np.cumsum(
+            counts)]), dtype=torch.int32, device=full["row"].device)
+    return rows, link
+
+
+def mm_aggregates_seg(full, seg: Segments):
+    """mm_aggregates per segment: each aggregate [S, M]; the filled clon /
+    clonR [M, Ltot]."""
+    parts = [mm_aggregates(_slice_positions(full, *seg.bounds(s)))
+             for s in range(seg.S)]
+    agg = {k: torch.stack([p[0][k] for p in parts]) for k in parts[0][0]}
+    return (agg, torch.cat([p[1] for p in parts], dim=1),
+            torch.cat([p[2] for p in parts], dim=1))
+
+
+def masked_medians_seg(total, clon_f, clonR_f, counted, rarefied,
+                       seg: Segments):
+    """masked_medians per segment, each median [S, M]."""
+    parts = []
+    for s in range(seg.S):
+        a, b = seg.bounds(s)
+        parts.append(masked_medians(total[:, a:b], clon_f[:, a:b],
+                                    clonR_f[:, a:b], counted[s],
+                                    rarefied[s]))
+    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}

@@ -14,7 +14,9 @@ LD model (reference: _iterator_ld_sites + _calc_ld_single, linkage.py:
 78-240): per edge, iterate mm levels present at BOTH positions; cumulative
 combo counts over mm' <= mm; require every single-allele count > 0 and
 combo total > min_snp; compute r2 / D' plus rarefied variants from a
-min_snp-sized multinomial draw.
+min_snp-sized multinomial draw. On a CUDA device, scaffolds with many
+captured pairs run the same model through the device LD kernel
+(kernels/cuda_linkage.py), as the JAX package does on an accelerator.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import pandas as pd
+import torch
 
 from .pileup import ScaffoldStats
 
@@ -110,18 +113,36 @@ def capture_read_pairs(stats: ScaffoldStats,
     return np.concatenate(out).astype(np.int64)
 
 
+# engine="auto" runs the device LD kernel on a CUDA device from this many
+# captured pairs on (instrain_tpu/profile/linkage.py:135-138)
+DEVICE_MIN_PAIRS = 100_000
+
+
+def resolve_linkage_engine(engine: str, device, n_pairs: int) -> str:
+    """The engine one scaffold's linkage runs, as the JAX package picks it:
+    auto is device on an accelerator at >= DEVICE_MIN_PAIRS captured
+    pairs, host otherwise."""
+    if engine == "auto":
+        dev = torch.device(device) if device is not None else None
+        return ("device" if dev is not None and dev.type == "cuda" and
+                n_pairs >= DEVICE_MIN_PAIRS else "host")
+    if engine not in ("host", "device"):
+        raise ValueError(f"unknown linkage engine {engine!r}")
+    return engine
+
+
 def calculate_linkage(stats: ScaffoldStats, window_starts: np.ndarray,
                       min_snp: int = 20, seed: int = 42,
                       scaffold: Optional[str] = None,
-                      engine: str = "host") -> pd.DataFrame:
+                      engine: str = "auto", device=None) -> pd.DataFrame:
     """Build the raw_linkage_table for one scaffold.
 
-    engine: "host" (numpy) is the only engine ported; the device LD
-    kernel (instrain_tpu/kernels/linkage.py:ld_device) is ROADMAP K6."""
-    if engine != "host":
-        raise NotImplementedError(
-            f"linkage engine {engine!r} is not ported to instrain_tpu_torch "
-            f"(device LD is ROADMAP.md Queue 1 item 3, kernel K6)")
+    engine: "host" (numpy), "device" (the ld kernel, csrc/linkage.cu, on
+    `device`; its plain PyTorch version on the CPU), or "auto"
+    (resolve_linkage_engine). The two engines agree in every column but
+    the rarefied ones, which the device engine draws with the
+    counter-based generator of the JAX package's device engine and the
+    host engine with numpy's."""
     scaffold = scaffold or stats.pileup.name
     pairs = capture_read_pairs(stats, window_starts)
     if len(pairs) == 0:
@@ -134,6 +155,11 @@ def calculate_linkage(stats: ScaffoldStats, window_starts: np.ndarray,
     E = len(uedges)
     p1 = (uedges >> 32).astype(np.int64)
     p2 = (uedges & 0xFFFFFFFF).astype(np.int64)
+
+    if resolve_linkage_engine(engine, device, len(pairs)) == "device":
+        return _calculate_linkage_device(stats, pairs, e_idx, M, p1, p2,
+                                         min_snp, seed, scaffold,
+                                         device or "cpu")
 
     combo = pairs[:, 2] * 4 + pairs[:, 3]
     flat = (e_idx * M + pairs[:, 4]) * 16 + combo
@@ -208,6 +234,64 @@ def calculate_linkage(stats: ScaffoldStats, window_starts: np.ndarray,
         "distance": np.abs(p1[ei] - p2[ei]),
         "position_A": p1[ei], "position_B": p2[ei],
         "mm": stats.mm_values[mi].astype(np.int64),
+        "scaffold": scaffold,
+    })
+    return df.sort_values(["position_A", "position_B", "mm"]).reset_index(
+        drop=True)
+
+
+def _device_ld_args(stats, pairs, e_idx, M, p1, p2, min_snp, seed,
+                    device):
+    """The ld kernel's arguments for one scaffold, its tensors on
+    `device`: the pairs' edge, mm and combo indices, the cumulative counts
+    and presence at each edge's two positions, the key fold_in(seed, rid),
+    min_snp and the counter's mm stride ceil8(M)."""
+    from .compact import _fold_keys
+
+    dev = torch.device(device)
+    c1, pr1 = _gather_pos_stats(stats, p1)            # [E, M, 4], [E, M]
+    c2, pr2 = _gather_pos_stats(stats, p2)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    return (t(e_idx, np.int32), t(pairs[:, 4], np.int32),
+            t(pairs[:, 2] * 4 + pairs[:, 3], np.int32), t(c1, np.int32),
+            t(c2, np.int32), t(pr1, np.bool_), t(pr2, np.bool_),
+            _fold_keys(seed, [stats.pileup.rid])[0], int(min_snp),
+            -(-M // 8) * 8)
+
+
+def _calculate_linkage_device(stats, pairs, e_idx, M, p1, p2, min_snp,
+                              seed, scaffold, device) -> pd.DataFrame:
+    """Device LD (instrain_tpu/profile/linkage.py:222-292): the combo
+    scatter-add and the allele/gate/r2/D' math in the ld kernel; the host
+    enumerates the pairs and builds the table. Nothing is padded: the
+    kernel counts its draws in the JAX caller's padded mm extent
+    ceil8(M), which is all the padding changes."""
+    from ..kernels import cuda_linkage
+
+    out = cuda_linkage.ld(*_device_ld_args(stats, pairs, e_idx, M, p1, p2,
+                                           min_snp, seed, device))
+    valid = out["valid"].cpu().numpy()
+    if not valid.any():
+        return pd.DataFrame()
+    ri, mj = np.nonzero(valid)
+    out = {k: v.cpu().numpy()[ri, mj] for k, v in out.items()
+           if k != "valid"}
+    base_arr = np.array(list(BASES))
+    df = pd.DataFrame({
+        "r2": out["r2"], "d_prime": out["d_prime"],
+        "r2_normalized": out["r2_normalized"],
+        "d_prime_normalized": out["d_prime_normalized"],
+        "total": out["total"],
+        "countAB": out["AB"], "countAb": out["Ab"],
+        "countaB": out["aB"], "countab": out["ab"],
+        "allele_A": base_arr[out["A"]], "allele_a": base_arr[out["a"]],
+        "allele_B": base_arr[out["B"]], "allele_b": base_arr[out["b"]],
+        "distance": np.abs(p1[ri] - p2[ri]),
+        "position_A": p1[ri], "position_B": p2[ri],
+        "mm": stats.mm_values[mj].astype(np.int64),
         "scaffold": scaffold,
     })
     return df.sort_values(["position_A", "position_B", "mm"]).reset_index(

@@ -134,12 +134,13 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
     for c0 in range(0, L, max_chunk):
         c1 = min(c0 + max_chunk, L)
         key = _fold_keys(seed + 7919 * (c0 // max_chunk), [pileup.rid])[0]
+        seg = cuda_sitestats.single_segment(c1 - c0, key, dev)
         out = cuda_sitestats.site_stats(
             torch.from_numpy(np.ascontiguousarray(counts[:, :, c0:c1],
                                                   dtype=np.int32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(ref_codes[c0:c1])).to(
                 dev),
-            null_t, freq_t, key, min_cov=min_cov,
+            null_t, freq_t, seg, min_cov=min_cov,
             min_covR=rarefied_coverage, rarefied_draws=rarefied_coverage,
             m_stride=m_stride)
         parts.append({k: v.cpu().numpy() for k, v in out.items()})

@@ -1,16 +1,19 @@
 """
 The `profile` operation: BAM + FASTA -> profile directory — the
 counterpart of instrain_tpu/profile/pipeline.py, single process, with the
-per-scaffold dense and hybrid engines.
+dense, hybrid and batch engines.
 
 Steps (reference: controller.py:144-169): decode the BAM natively, filter
 read pairs, then per scaffold build the pileup counts, run the site-stats
 and rarefied-clonality kernels on the chosen device (cfg.device) — and,
-with the hybrid engine, the device compaction (K4), so that only
-table-ready outputs come back — build the SNV/scaffold/linkage tables on
-the host, and store the profile directory and its TSVs. Genome-wide
-aggregation, plots and the batch engine are not ported yet: asking for
-them raises (ROADMAP.md).
+with the hybrid and batch engines, the device compaction (K4), so that
+only table-ready outputs come back; the batch engine (K5) runs many
+scaffolds per launch, the hybrid engine one — build the SNV, scaffold
+and linkage tables on the host (linkage of scaffolds with many captured
+pairs through the device LD kernel, K6), and store the profile directory
+and its TSVs. Genome-wide
+aggregation and plots are not ported yet: asking for them raises
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,11 +76,10 @@ def unported(what: str, item: str) -> NotImplementedError:
 def check_supported(cfg: ProfileConfig) -> None:
     """Raise for every option of `profile` that this port does not run,
     instead of ignoring it."""
-    if cfg.engine not in ("auto", "dense", "hybrid"):
-        item = {"batch": "item 2: batch engine K5"}.get(
-            cfg.engine, "the dense engine is the Hopper counterpart of "
-                        "--engine pallas: use --engine dense")
-        raise unported(f"--engine {cfg.engine}", item)
+    if cfg.engine not in ("auto", "dense", "hybrid", "batch"):
+        raise unported(f"--engine {cfg.engine}",
+                       "the dense engine is the Hopper counterpart of "
+                       "--engine pallas: use --engine dense")
     if cfg.gene_file is not None:
         raise unported("gene profiling (-g/--gene_file)",
                        "item 4: genes and genome")
@@ -103,21 +105,44 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown device {name!r} (cuda or cpu)")
 
 
-# The hybrid engine holds a scaffold's whole padded [Mp, 4, Lp] working
-# set on the device in one launch; above this many padded cells the JAX
-# package sends the scaffold to the position-chunked dense engine
-# (instrain_tpu/profile/pipeline.py:475-481). The port keeps its bound,
-# although the card holds more: the engine decides the clonR draws' keys
-# on scaffolds over 1 Mb.
+# The hybrid and batch engines hold a scaffold's whole padded [Mp, 4, Lp]
+# working set on the device in one launch; above this many padded cells
+# the JAX package sends the scaffold to the position-chunked dense engine
+# (instrain_tpu/profile/pipeline.py:475-481, :584-594). The port keeps
+# its bound, although the card holds more: the engine decides the clonR
+# draws' keys on scaffolds over 1 Mb.
 HYBRID_MAX_CELLS = 1 << 27
+
+
+# --engine auto runs the batch engine on a GPU from this many kept
+# scaffolds on (instrain_tpu/profile/pipeline.py:239-246)
+BATCH_MIN_SCAFFOLDS = 16
+
+
+def resolve_run_engine(cfg_engine: str, device: torch.device,
+                       n_scaffolds: int) -> str:
+    """The engine of a run of n_scaffolds kept scaffolds, as the JAX
+    package picks it (pipeline.py:239-246, :255, :305-306): auto is dense
+    on the CPU, and on a GPU batch from BATCH_MIN_SCAFFOLDS scaffolds on
+    and hybrid below; batch with one scaffold runs hybrid."""
+    engine = cfg_engine
+    if engine == "auto":
+        if device.type == "cpu":
+            return "dense"
+        engine = ("batch" if n_scaffolds >= BATCH_MIN_SCAFFOLDS
+                  else "hybrid")
+    if engine == "batch" and n_scaffolds <= 1:
+        engine = "hybrid"
+    return engine
 
 
 def resolve_engine(cfg_engine: str, device: torch.device, M: int,
                    L: int) -> str:
-    """The engine one scaffold of [M, L] runs, as the JAX package picks
-    it (pipeline.py:451-453, :475-481): auto is dense on the CPU and
-    hybrid on a GPU; hybrid goes dense when max(ceil8(M), 8) *
-    max(ceil4096(L), 4096) exceeds HYBRID_MAX_CELLS."""
+    """The engine one scaffold of [M, L] runs outside the batch engine, as
+    the JAX package picks it (pipeline.py:451-453, :475-481): auto is
+    dense on the CPU and hybrid on a GPU; hybrid goes dense when
+    max(ceil8(M), 8) * max(ceil4096(L), 4096) exceeds
+    HYBRID_MAX_CELLS."""
     engine = cfg_engine
     if engine == "auto":
         engine = "dense" if device.type == "cpu" else "hybrid"
@@ -209,15 +234,20 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
     freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=device)
 
-    finals = []
-    for name in keep:
-        logging.debug(get_worker_log("SplitProfile", name, "start"))
-        res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
-                                    null_t, freq_t, device)
-        logging.debug(get_worker_log("SplitProfile", name, "end"))
-        if res is not None:
-            with _phase("tables"):
-                finals.append(_finalize_result(res, cfg))
+    engine = resolve_run_engine(cfg.engine, device, len(keep))
+    if engine == "dense":
+        finals = []
+        for name in keep:
+            logging.debug(get_worker_log("SplitProfile", name, "start"))
+            res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
+                                        null_t, freq_t, device)
+            logging.debug(get_worker_log("SplitProfile", name, "end"))
+            if res is not None:
+                with _phase("tables"):
+                    finals.append(_finalize_result(res, cfg))
+    else:
+        finals = _profile_scaffolds_compact(bam, pairs, registry, keep, cfg,
+                                            engine, null_t, freq_t, device)
     with _phase("store"):
         _store_results(isdir, finals, cfg)
         log_checkpoint("main_profile", "profile_scaffolds", "end")
@@ -271,61 +301,159 @@ def _is_device_error(e: BaseException) -> bool:
     return isinstance(e, RuntimeError) and "CUDA" in str(e)
 
 
+def _contain(name: str, e: Exception) -> None:
+    """Log a scaffold's failure and drop the scaffold (reference:
+    profile_utilities.py:92-112 SplitException / MergeError); a kernel or
+    CUDA fault is re-raised: it fails the run instead of hiding behind a
+    dropped scaffold while the run exits 0."""
+    if _is_device_error(e):
+        raise e
+    log_failure("SplitException", name, str(e))
+    logging.error(f"whole scaffold exception- {name}")
+
+
+def _inject_failure(name: str, cfg) -> None:
+    """The fault-injection hook of the per-scaffold engines (reference:
+    FailureScaffoldHeaderTesting magic name, profile_utilities.py:
+    137-139)."""
+    if name == "FailureScaffoldHeaderTesting" and cfg.debug:
+        raise AssertionError("injected failure for testing")
+
+
 def _profile_one_scaffold(bam, pairs, registry, name, cfg, null_lut,
                           freq_lut, device):
+    """One scaffold through the dense engine, its failure contained."""
     try:
         return _profile_one_scaffold_inner(bam, pairs, registry, name, cfg,
                                            null_lut, freq_lut, device)
     except Exception as e:
-        # a failed kernel must fail the run, not hide behind a scaffold
-        # that is dropped while the run exits 0
-        if _is_device_error(e):
-            raise
-        # per-scaffold failure containment (reference:
-        # profile_utilities.py:92-112 SplitException / MergeError)
-        log_failure("SplitException", name, str(e))
-        logging.error(f"whole scaffold exception- {name}")
+        _contain(name, e)
         return None
 
 
 def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
                                 freq_lut, device):
-    # fault-injection hook (reference: FailureScaffoldHeaderTesting magic
-    # name, profile_utilities.py:137-139)
-    if name == "FailureScaffoldHeaderTesting" and cfg.debug:
-        raise AssertionError("injected failure for testing")
+    _inject_failure(name, cfg)
     rid = bam.name_to_ref_id.get(name)
     if rid is None:
         return None
     L = registry.length_of(name)
     with _phase("pileup"):
-        pileup = build_scaffold_pileup(bam, pairs, rid, L)
+        pileup = _build_pileup(bam, pairs, rid, L, cfg)
         if pileup is None:
             return None
-        if cfg.skip_mm_profiling:
-            # collapse the mm axis: every pair counts at level 0
-            pileup.counts = pileup.counts.sum(axis=0, keepdims=True,
-                                              dtype=np.int32)
-            pileup.mm_values = np.array([0])
-            pileup.qid2mmidx = np.where(pileup.qid2mmidx >= 0, 0,
-                                        -1).astype(np.int32)
     ref_codes = registry.codes[name]
-    M = pileup.counts.shape[0]
-    run = (compact_mod.run_site_stats_hybrid
-           if resolve_engine(cfg.engine, device, M, L) == "hybrid"
-           else run_site_stats)
     with _phase("kernels"):
-        stats = run(pileup, ref_codes, null_lut, freq_lut,
-                    min_cov=cfg.variant.min_cov,
-                    rarefied_coverage=cfg.rarefied_coverage, seed=cfg.seed,
-                    device=device)
+        stats = run_site_stats(pileup, ref_codes, null_lut, freq_lut,
+                               min_cov=cfg.variant.min_cov,
+                               rarefied_coverage=cfg.rarefied_coverage,
+                               seed=cfg.seed, device=device)
     with _phase("tables"):
-        return _result_from_stats(name, L, stats, ref_codes, cfg)
+        return _result_from_stats(name, L, stats, ref_codes, cfg, device)
 
 
-def _result_from_stats(name, L, stats, ref_codes, cfg):
-    """SNP / SNV / coverage tables and host linkage for one scaffold,
-    from compact or dense stats."""
+def _build_pileup(bam, pairs, rid, L, cfg):
+    """The scaffold's pileup; with skip_mm_profiling, its mm axis
+    collapsed: every pair counts at level 0."""
+    pileup = build_scaffold_pileup(bam, pairs, rid, L)
+    if pileup is not None and cfg.skip_mm_profiling:
+        pileup.counts = pileup.counts.sum(axis=0, keepdims=True,
+                                          dtype=np.int32)
+        pileup.mm_values = np.array([0])
+        pileup.qid2mmidx = np.where(pileup.qid2mmidx >= 0, 0,
+                                    -1).astype(np.int32)
+    return pileup
+
+
+def _oversize(pairs, rid, L, cfg) -> bool:
+    """Whether the batch engine sends a scaffold to the position-chunked
+    dense path, by the JAX package's estimate before the pileup is built
+    (pipeline.py:584-594): max(ceil8(n_mm), 8) * max(ceil4096(L), 4096)
+    padded cells over HYBRID_MAX_CELLS, with n_mm the distinct mm values
+    of the scaffold's pairs; never with skip_mm_profiling."""
+    if cfg.skip_mm_profiling:
+        return False
+    qids, mms = pairs.r2m_for_scaffold(rid)
+    n_mm = len(np.unique(mms)) if len(qids) else 0
+    return (max(_bucket(max(n_mm, 1), 8), 8) * max(_bucket(L, 4096), 4096)
+            > HYBRID_MAX_CELLS)
+
+
+def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
+                               null_lut, freq_lut, device) -> List[Dict]:
+    """The batch and hybrid engines, through one streaming loop
+    (compact.run_site_stats_compact_stream): pileups are built as the
+    engine asks for them, and each chunk's scaffolds are turned into
+    tables as soon as its outputs land, while the next chunk runs. Batch
+    (instrain_tpu/profile/pipeline.py:541-780) fills chunks of many
+    scaffolds; hybrid (:440-500) makes each scaffold a chunk of its own.
+    Scaffolds over the one-launch bound run the position-chunked dense
+    path afterwards: for batch by the JAX package's estimate before the
+    pileup (_oversize), for hybrid by the pileup's own extent
+    (resolve_engine). A scaffold whose pileup or tables fail is logged and
+    dropped; a kernel or CUDA fault fails the run. Returns the finalized
+    payloads in `keep` order."""
+    metas: Dict[int, tuple] = {}
+    dense: List[tuple] = []
+    finals: Dict[int, Dict] = {}
+
+    def items():
+        for name in keep:
+            logging.debug(get_worker_log("SplitProfile", name, "start"))
+            rid = bam.name_to_ref_id.get(name)
+            if rid is None:
+                continue
+            L = registry.length_of(name)
+            with _phase("pileup"):
+                try:
+                    if engine == "hybrid":
+                        _inject_failure(name, cfg)
+                    oversize = (engine == "batch" and
+                                _oversize(pairs, rid, L, cfg))
+                    pu = _build_pileup(bam, pairs, rid, L, cfg)
+                except Exception as e:
+                    _contain(name, e)
+                    continue
+            if pu is None:
+                continue
+            if engine == "hybrid":
+                oversize = resolve_engine(engine, device, pu.counts.shape[0],
+                                          L) == "dense"
+            i = len(metas)
+            metas[i] = (name, L, registry.codes[name])
+            if oversize:
+                dense.append((i, pu))
+            else:
+                yield i, pu, registry.codes[name]
+
+    def handle(i, stats):
+        name, L, ref_codes = metas[i]
+        with _phase("tables"):
+            try:
+                finals[i] = _finalize_result(_result_from_stats(
+                    name, L, stats, ref_codes, cfg, device), cfg)
+            except Exception as e:
+                _contain(name, e)
+        logging.debug(get_worker_log("SplitProfile", name, "end"))
+
+    kw = dict(min_cov=cfg.variant.min_cov,
+              rarefied_coverage=cfg.rarefied_coverage, seed=cfg.seed)
+    chunk_cells = compact_mod.CHUNK_CELLS if engine == "batch" else 0
+    for i, stats in compact_mod.run_site_stats_compact_stream(
+            items(), null_lut, freq_lut, with_dense=True, device=device,
+            max_chunk_cells=chunk_cells, phase=_phase, **kw):
+        handle(i, stats)
+    for i, pu in dense:
+        with _phase("kernels"):
+            stats = run_site_stats(pu, metas[i][2], null_lut, freq_lut,
+                                   device=device, **kw)
+        handle(i, stats)
+    return [finals[i] for i in sorted(finals)]
+
+
+def _result_from_stats(name, L, stats, ref_codes, cfg, device):
+    """SNP / SNV / coverage tables and linkage for one scaffold, from
+    compact or dense stats."""
     if isinstance(stats, compact_mod.CompactStats):
         snp, csnv = compact_mod.snp_tables_compact(stats, ref_codes)
         ctable = compact_mod.coverage_table_compact(stats)
@@ -335,7 +463,7 @@ def _result_from_stats(name, L, stats, ref_codes, cfg):
         ctable = tables.coverage_table(stats, snp)
     ws = linkage_mod.window_starts_for(L, cfg.window_length)
     ld = linkage_mod.calculate_linkage(stats, ws, min_snp=int(cfg.min_snp),
-                                      seed=cfg.seed, engine="host")
+                                      seed=cfg.seed, device=device)
     return ScaffoldProfileResult(
         name=name, length=L, stats=stats, snp_table=snp,
         cumulative_snv_table=csnv, cumulative_scaffold_table=ctable,

@@ -6,7 +6,8 @@ read pairs at ~COV coverage, written as a FASTA and a BGZF BAM.
 Makes the same random draws in the same order as the JAX package's
 benchmark generator (bench_batch.synth), so for equal seed and sizes the
 BAM is byte-identical to it (asserted in tests/test_torch_io.py). The
-per-read work is vectorised per scaffold; it writes no .bai index.
+records are built with numpy in blocks of reads; it writes no .bai
+index.
 """
 
 from __future__ import annotations
@@ -75,28 +76,73 @@ def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,
 
     alt_ref = ref.copy()
     alt_ref[snv_pos] = snv_alt
-    cigar = struct.pack("<I", (READ << 4) | 0)
-    qual = bytes([QUAL]) * READ
-    recs = []
-    block = 1 << 15      # reads per vectorised block (bounds memory)
-    for i in range(len(pos)):
-        if i % block == 0:
-            win = pos[i:i + block, None] + np.arange(READ)
-            seqs = np.where(mutated[i:i + block, None], alt_ref[win],
-                            ref[win])
-            nibs = _CHAR2NIB[seqs]
-            seq4 = ((nibs[:, 0::2] << 4) | nibs[:, 1::2]).astype(np.uint8)
-        first = i % 2 == 0
-        qn = f"r{qid0 + i // 2}".encode() + b"\x00"
-        mate = pos[i + 1] if first else pos[i - 1]
-        body = (struct.pack("<iiBBHHHiiii", s, int(pos[i]), len(qn), MAPQ,
-                            4680, 1, 99 if first else 147, READ, s,
-                            int(mate), INSERT if first else -INSERT) +
-                qn + cigar + seq4[i % block].tobytes() + qual +
-                b"NMi" + struct.pack("<i", int(nm[i])))
-        recs.append(struct.pack("<i", len(body)) + body)
+    n = len(pos)
+    first = np.arange(n) % 2 == 0
+    mate = np.empty_like(pos)
+    mate[0::2], mate[1::2] = pos[1::2], pos[0::2]
+    q = qid0 + np.arange(n, dtype=np.int64) // 2
+    digits = np.ones(n, dtype=np.int64)
+    p10 = 10
+    while (q >= p10).any():
+        digits += q >= p10
+        p10 *= 10
+    l_name = digits + 2                     # "r", the digits, "\0"
+    tail = 4 + (READ + 1) // 2 + READ + 7   # cigar, seq, qual, NM:i
+
+    hdr = np.zeros(n, dtype=_HDR)
+    hdr["block_size"] = _HDR.itemsize - 4 + l_name + tail
+    hdr["ref_id"] = hdr["next_ref_id"] = s
+    hdr["pos"], hdr["next_pos"] = pos, mate
+    hdr["l_read_name"], hdr["mapq"] = l_name, MAPQ
+    hdr["bin"], hdr["n_cigar_op"] = 4680, 1
+    hdr["flag"] = np.where(first, 99, 147)
+    hdr["l_seq"] = READ
+    hdr["tlen"] = np.where(first, INSERT, -INSERT)
+
+    # records in coordinate order (a stable sort of pos); each row is the
+    # fixed part, the name padded to the block's widest and the tail, and
+    # the padding is masked out as the rows are flattened
     order = np.argsort(pos, kind="stable")
-    return b"".join(recs[i] for i in order)
+    fixed = np.frombuffer(struct.pack("<I", (READ << 4) | 0), np.uint8)
+    qual_nm = np.frombuffer(bytes([QUAL]) * READ + b"NMi", np.uint8)
+    out = []
+    block = 1 << 15      # reads per vectorised block (bounds memory)
+    for i in range(0, n, block):
+        idx = order[i:i + block]
+        b = len(idx)
+        d, qq = digits[idx], q[idx]
+        w = int(d.max()) + 2
+        rows = np.empty((b, _HDR.itemsize + w + tail), dtype=np.uint8)
+        rows[:, :_HDR.itemsize] = hdr[idx].view(np.uint8).reshape(
+            b, _HDR.itemsize)
+        name = rows[:, _HDR.itemsize:_HDR.itemsize + w]
+        name[:] = 0
+        name[:, 0] = ord("r")
+        for k in range(w - 2):
+            live = k < d
+            place = 10 ** np.maximum(d - 1 - k, 0)
+            name[live, 1 + k] = ord("0") + (qq[live] // place[live]) % 10
+        win = pos[idx, None] + np.arange(READ)
+        seqs = np.where(mutated[idx, None], alt_ref[win], ref[win])
+        nibs = _CHAR2NIB[seqs]
+        t = rows[:, _HDR.itemsize + w:]
+        t[:, :4] = fixed
+        t[:, 4:4 + READ // 2] = (nibs[:, 0::2] << 4) | nibs[:, 1::2]
+        t[:, 4 + READ // 2:-4] = qual_nm
+        t[:, -4:] = nm[idx].astype("<i4").view(np.uint8).reshape(b, 4)
+        keep = np.ones(rows.shape, dtype=bool)
+        keep[:, _HDR.itemsize:_HDR.itemsize + w] = (
+            np.arange(w)[None, :] < (d + 2)[:, None])
+        out.append(rows[keep])
+    return np.concatenate(out).tobytes() if out else b""
+
+
+# the fixed part of a BAM record: block_size and the 32-byte core
+_HDR = np.dtype([("block_size", "<i4"), ("ref_id", "<i4"), ("pos", "<i4"),
+                 ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+                 ("n_cigar_op", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
+                 ("next_ref_id", "<i4"), ("next_pos", "<i4"),
+                 ("tlen", "<i4")])
 
 
 def site_stats_inputs(M: int, L: int, seed: int):
@@ -116,3 +162,33 @@ def site_stats_inputs(M: int, L: int, seed: int):
     ref[rng.random(L) < 0.15] = 4                      # not ACTG
     return counts, ref
 
+
+def ld_inputs(E: int, M: int, N: int, seed: int):
+    """Random inputs of the linkage kernel for E edges over M mm levels
+    and N captured pairs: (e_idx, mm_idx, combo int32 [N], c1, c2 int32
+    [E, M, 4] cumulative base counts, present1, present2 bool [E, M]).
+    Each edge has a major and a minor base at each end, and most pairs
+    carry them, so many cells pass the gates; some edges tie their two
+    bases' counts (the stable allele order), and some levels are absent."""
+    rng = np.random.default_rng(seed)
+    ends = np.stack([rng.permutation(4)[:2] for _ in range(2 * E)])
+    ends = ends.reshape(E, 2, 2)                 # [edge, end, major/minor]
+    e_idx = rng.integers(0, E, N).astype(np.int32)
+    mm_idx = rng.integers(0, M, N).astype(np.int32)
+    b = [ends[e_idx, k, (rng.random(N) > p).astype(int)]
+         for k, p in ((0, 0.65), (1, 0.6))]
+    noise = rng.random((2, N)) < 0.03
+    b = [np.where(noise[k], rng.integers(0, 4, N), b[k]) for k in range(2)]
+    combo = (b[0] * 4 + b[1]).astype(np.int32)
+    c = []
+    for k in range(2):
+        exact = np.zeros((E, M, 4), np.int64)
+        np.add.at(exact, (e_idx, mm_idx, b[k]), 1)
+        exact += rng.integers(0, 3, (E, M, 4)) * (rng.random((E, M, 4)) < 0.2)
+        tie = rng.random(E) < 0.1
+        maj, mnr = ends[:, k, 0], ends[:, k, 1]
+        ee = np.nonzero(tie)[0]
+        exact[ee, :, mnr[ee]] = exact[ee, :, maj[ee]]
+        c.append(np.cumsum(exact, axis=1).astype(np.int32))
+    present = [rng.random((E, M)) < 0.9 for _ in range(2)]
+    return e_idx, mm_idx, combo, c[0], c[1], present[0], present[1]

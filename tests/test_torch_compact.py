@@ -121,6 +121,18 @@ def assert_compact_equal(want, got, what=""):
                 _assert_bits_equal(a, b, (what, group, k))
 
 
+def one_scaffold(out):
+    """The K4 outputs of a chunk of one segment in the one-scaffold form
+    of the JAX package: the aggregates without their segment axis, rows
+    and linkage without seg_start (checked: [0, n_rows] and [0, n_pos])."""
+    rows = dict(out["rows"])
+    link = dict(out["linkage"])
+    assert rows.pop("seg_start").tolist() == [0, rows["n_rows"]]
+    assert link.pop("seg_start").tolist() == [0, link["n_pos"]]
+    agg = {k: v[0] for k, v in out["agg"].items()}
+    return dict(rows=rows, agg=agg, linkage=link, masks=out["masks"])
+
+
 def _port_full(counts, ref, key, Mp):
     return S.site_stats(*[torch.from_numpy(np.ascontiguousarray(x))
                           for x in (counts, ref, NULL_LUT, FREQ_LUT)],
@@ -137,7 +149,9 @@ def test_k4_plain_matches_jax(case):
     assert_compact_equal(want, S.compact_from_full(full, M, L), "plain")
     # the kernel wrappers take the plain versions for CPU tensors
     CC.reset_launch_counts()
-    assert_compact_equal(want, CC.compact_from_full(full, M, L), "wrapper")
+    seg = C.single_segment(L, key, "cpu")
+    assert_compact_equal(want, one_scaffold(CC.compact_from_full(full, seg)),
+                         "wrapper")
     assert CC.launch_counts() == {"select_rows": 0, "mm_aggregates": 0,
                                   "masked_median": 0}
     kind = case[0]
@@ -291,13 +305,44 @@ def test_resolve_engine():
     assert PP.resolve_engine("hybrid", cpu, 9, 1 << 23) == "hybrid"
     assert PP.resolve_engine("hybrid", cpu, 9, (1 << 23) + 1) == "dense"
     assert PP.resolve_engine("auto", cuda, 1, 2_500_000) == "hybrid"
+    # the run-level rule (instrain_tpu/profile/pipeline.py:239-246, :255):
+    # auto is batch on a GPU from 16 kept scaffolds on, hybrid below and
+    # dense on the CPU; batch with one scaffold runs hybrid
+    n = PP.BATCH_MIN_SCAFFOLDS
+    assert n == 16
+    assert PP.resolve_run_engine("auto", cuda, n) == "batch"
+    assert PP.resolve_run_engine("auto", cuda, n - 1) == "hybrid"
+    assert PP.resolve_run_engine("auto", cpu, 1000) == "dense"
+    assert PP.resolve_run_engine("batch", cpu, 2) == "batch"
+    assert PP.resolve_run_engine("batch", cuda, 1) == "hybrid"
+    assert PP.resolve_run_engine("dense", cuda, 1000) == "dense"
+    assert PP.resolve_run_engine("hybrid", cuda, 1000) == "hybrid"
 
 
-def test_batch_engine_raises(tmp_path, synth_data):
+def test_batch_engine_runs(tmp_path, synth_data, profiles):
+    """--engine batch runs the batch engine (four scaffolds in fewer
+    chunks, one per mm extent): its TSVs equal the hybrid engine's, byte
+    for byte."""
     fasta, bam, _ = synth_data
-    with pytest.raises(NotImplementedError, match="item 2: batch engine K5"):
-        port_main(["profile", bam, fasta, "-o", str(tmp_path / "b.IS"),
-                   "--device", "cpu", "--engine", "batch"] + FLAGS)
+    out = str(tmp_path / "b.IS")
+    dispatched = []
+    dispatch = PC._dispatch_chunk
+
+    def spy(items, *a, **k):
+        dispatched.append(len(items))
+        return dispatch(items, *a, **k)
+
+    PC._dispatch_chunk = spy
+    try:
+        assert port_main(["profile", bam, fasta, "-o", out, "--device",
+                          "cpu", "--engine", "batch"] + FLAGS) == 0
+    finally:
+        PC._dispatch_chunk = dispatch
+    assert sum(dispatched) == 4 and len(dispatched) < 4
+    for table in TABLES:
+        with open(_tsv(out, table)) as f, \
+                open(_tsv(profiles["hybrid"], table)) as g:
+            assert f.read() == g.read(), table
 
 
 def test_hybrid_draws_one_key_per_scaffold():
@@ -323,6 +368,33 @@ def test_hybrid_draws_one_key_per_scaffold():
     assert (got.clonR[:, chunk:] != dense[:, chunk:]).mean() > 0.5
 
 
+def test_hybrid_engine_runs_one_scaffold_per_chunk(tmp_path, synth_data,
+                                                   profiles):
+    """--engine hybrid goes through the batch engine's streaming loop with
+    every scaffold a chunk of its own, and gives the same bytes as the
+    run of the `profiles` fixture."""
+    fasta, bam, _ = synth_data
+    out = str(tmp_path / "h.IS")
+    dispatched = []
+    dispatch = PC._dispatch_chunk
+
+    def spy(items, *a, **k):
+        dispatched.append(len(items))
+        return dispatch(items, *a, **k)
+
+    PC._dispatch_chunk = spy
+    try:
+        assert port_main(["profile", bam, fasta, "-o", out, "--device",
+                          "cpu", "--engine", "hybrid"] + FLAGS) == 0
+    finally:
+        PC._dispatch_chunk = dispatch
+    assert dispatched == [1, 1, 1, 1]
+    for table in TABLES:
+        with open(_tsv(out, table)) as f, \
+                open(_tsv(profiles["hybrid"], table)) as g:
+            assert f.read() == g.read(), table
+
+
 def test_compact_kernel_fault_is_not_contained(tmp_path, synth_data,
                                                monkeypatch):
     fasta, bam, _ = synth_data
@@ -330,7 +402,7 @@ def test_compact_kernel_fault_is_not_contained(tmp_path, synth_data,
     def kernel_fault(*a, **k):
         raise KernelError("select_rows: launch failed")
 
-    monkeypatch.setattr(PC, "run_site_stats_hybrid", kernel_fault)
+    monkeypatch.setattr(PC, "_dispatch_chunk", kernel_fault)
     with pytest.raises(KernelError):
         port_main(["profile", bam, fasta, "-o", str(tmp_path / "k.IS"),
                    "--device", "cpu", "--engine", "hybrid"] + FLAGS)
@@ -364,12 +436,13 @@ def test_plain_matches_compact_golden(M, L, seed):
     """What chip_smoke.py checks with the kernels, with the plain path."""
     g = _golden()
     tag = f"M{M}_L{L}"
+    seg = C.single_segment(L, g[f"{tag}/key"], "cpu")
     full = C.site_stats(*[torch.from_numpy(g[k]) for k in (
         f"{tag}/counts", f"{tag}/ref", "null_lut", "freq_lut")],
-        g[f"{tag}/key"], min_cov=G.MIN_COV, min_covR=G.RAREFIED,
+        seg, min_cov=G.MIN_COV, min_covR=G.RAREFIED,
         rarefied_draws=G.RAREFIED, m_stride=int(g[f"{tag}/m_stride"]))
     assert_compact_equal(_golden_case(g, tag),
-                         CC.compact_from_full(full, M, L), tag)
+                         one_scaffold(CC.compact_from_full(full, seg)), tag)
 
 
 @pytest.fixture
@@ -384,22 +457,22 @@ def cuda_device():
                                       (33, 5000, 2), (8, 300_001, 3)])
 def test_k4_kernels_match_plain_on_gpu(M, L, seed, cuda_device):
     counts, ref = G.make_inputs(M, L, seed)
-    key = PC._fold_keys(seed, [seed])[0]
+    seg = C.single_segment(L, PC._fold_keys(seed, [seed])[0], cuda_device)
     full = C.site_stats(*[torch.from_numpy(x).to(cuda_device) for x in (
-        counts, ref, NULL_LUT, FREQ_LUT)], key, m_stride=max(
+        counts, ref, NULL_LUT, FREQ_LUT)], seg, m_stride=max(
             -(-M // 8) * 8, 8))
     CC.reset_launch_counts()
-    rows, link = CC.select_rows(full)
-    agg, clon_f, clonR_f = CC.mm_aggregates(full)
+    rows, link = CC.select_rows(full, seg)
+    agg, clon_f, clonR_f = CC.mm_aggregates(full, seg)
     med = CC.masked_median(full["total"], clon_f, clonR_f, agg["counted"],
-                           agg["rarefied"])
+                           agg["rarefied"], seg)
     torch.cuda.synchronize()
     assert CC.launch_counts() == {"select_rows": 1, "mm_aggregates": 1,
                                   "masked_median": 1}
-    prows, plink = S.select_rows(full)
-    pagg, pclon_f, pclonR_f = S.mm_aggregates(full)
-    pmed = S.masked_medians(full["total"], pclon_f, pclonR_f,
-                            pagg["counted"], pagg["rarefied"])
+    prows, plink = S.select_rows_seg(full, seg)
+    pagg, pclon_f, pclonR_f = S.mm_aggregates_seg(full, seg)
+    pmed = S.masked_medians_seg(full["total"], pclon_f, pclonR_f,
+                                pagg["counted"], pagg["rarefied"], seg)
     for want, got in ((prows, rows), (plink, link), (pagg, agg),
                       (pmed, med), ({"f": pclon_f, "r": pclonR_f},
                                     {"f": clon_f, "r": clonR_f})):

@@ -192,7 +192,7 @@ def test_special_stored_as_pickle_without_h5py(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--engine", "hybrid", "--mesh_devices", "2"] + FLAGS,
-    ["--engine", "batch"] + FLAGS,
+    ["--engine", "batch", "--mesh_devices", "2"] + FLAGS,
     ["--engine", "pallas"] + FLAGS, ["-g", "genes.fna"] + FLAGS,
     ["--skip_plot_generation"], ["--skip_genome_wide"],
     ["--mesh_devices", "2"] + FLAGS, ["--distributed"] + FLAGS])

@@ -93,8 +93,9 @@ def test_site_stats_matches_jax(M, L, seed):
                  "plain")
     # the kernel wrappers take the plain versions for CPU tensors
     C.reset_launch_counts()
-    wrapped = C.site_stats(c, r, nl, fl, key, min_cov=5, min_covR=50,
-                           rarefied_draws=50, m_stride=Mp)
+    wrapped = C.site_stats(c, r, nl, fl, C.single_segment(L, key, c.device),
+                           min_cov=5, min_covR=50, rarefied_draws=50,
+                           m_stride=Mp)
     _assert_same(expected, {k: v.numpy() for k, v in wrapped.items()},
                  "wrapper")
     assert C.launch_counts() == {"site_stats": 0, "clonR": 0}
@@ -184,8 +185,10 @@ def test_plain_matches_golden(M, L, seed):
         g = {k: z[k] for k in z.files}
     c, r, nl, fl = _torch(g[f"{tag}/counts"], g[f"{tag}/ref"],
                           g["null_lut"], g["freq_lut"])
-    got = C.site_stats(c, r, nl, fl, g[f"{tag}/key"], min_cov=G.MIN_COV,
-                       min_covR=G.RAREFIED, rarefied_draws=G.RAREFIED,
+    got = C.site_stats(c, r, nl, fl,
+                       C.single_segment(L, g[f"{tag}/key"], c.device),
+                       min_cov=G.MIN_COV, min_covR=G.RAREFIED,
+                       rarefied_draws=G.RAREFIED,
                        m_stride=int(g[f"{tag}/m_stride"]))
     expected = {k.split("/")[-1]: v for k, v in g.items()
                 if k.startswith(f"{tag}/out/")}
@@ -208,7 +211,8 @@ def test_kernels_match_plain_on_gpu(M, L, seed, cuda_device):
     c, r, nl, fl = (t.to(cuda_device)
                     for t in _torch(counts, ref, NULL_LUT, FREQ_LUT))
     C.reset_launch_counts()
-    got = C.site_stats(c, r, nl, fl, key, m_stride=Mp)
+    got = C.site_stats(c, r, nl, fl, C.single_segment(L, key, c.device),
+                       m_stride=Mp)
     torch.cuda.synchronize()
     assert C.launch_counts() == {"site_stats": 1, "clonR": 1}
     want = S.site_stats(c, r, nl, fl, key, m_stride=Mp)
