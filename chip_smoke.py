@@ -2,7 +2,7 @@
 """
 Smoke run of instrain_tpu_torch on one NVIDIA GPU: the quickest proof that
 the port builds, that its kernels are right on the card, and that its
-main path (`profile`) runs through them.
+main paths (`profile` and `compare`) run through them.
 
     python3 chip_smoke.py
 
@@ -25,8 +25,14 @@ Phases (each prints its own lines; the first failure exits non-zero):
      single position and one past 1 Mb among them, M in {1, 8, 33}, and
      the engine's chunk path against the JAX package's batch golden file;
      and the linkage kernel (K6) against its plain version and the JAX
-     package's golden file, every column bit for bit. Kernel and plain
-     times from CUDA events;
+     package's golden file, every column bit for bit. Then the overlap
+     kernel of compare (K7) against its plain version and the host
+     popcount, exact, at five (samples, mm levels, positions) shapes up to
+     (16, 4, 2^23) and (64, 3, 100000), and timed beside the bf16 product
+     of the unpacked bits; the host popcount against the kernel with its
+     copies over the work n^2 * Mg * L that compare's auto engine reads.
+     Kernel and plain times from CUDA events, each kernel's bound from its
+     bytes and operations at the card's rates;
   4. end to end: `instrain_tpu_torch profile` through the CLI on a small
      synthetic BAM, --engine dense, hybrid and batch, each on --device
      cuda and --device cpu (each pair's TSVs byte-identical); then the
@@ -45,8 +51,17 @@ Phases (each prints its own lines; the first failure exits non-zero):
      reset and read around each run: site_stats and clonR once per 1 Mb
      position chunk, the other kernels never; the reference's
      cross-engine tolerances against the batch and hybrid tables, the
-     rarefied columns of the isolate apart).
-The last two lines are the kernels' JSON record and the device record.
+     rarefied columns of the isolate apart); then compare: 8 samples of
+     the metagenome (4 genomes, 10-40x) profiled on the card with
+     genome-wide aggregation, and compared (with -s, --bams,
+     --store_mismatch_locations and --store_coverage_overlap) on the card
+     through the overlap kernel (launch counts reset just before and read
+     just after: once per scaffold), with the host engine, on --device cpu
+     and with --engine auto (no launch below its bound), every TSV byte
+     for byte, a comparison row per (scaffold, pair, mm level) and no
+     scaffold failure.
+The last three lines are the card's name and power limit, the kernels'
+JSON record and the device record.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
 """
 
@@ -184,6 +199,54 @@ def timed_pair(torch, kernel, plain, n_kernel, n_plain):
     k2 = cuda_ms(torch, kernel, n_kernel)
     p2 = cuda_ms(torch, plain, n_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# The least time the card could take for a kernel's work: the larger of
+# the bytes it must move (each input read once, each output written once)
+# over the memory rate and its operations over their issue rate. Rates:
+# HBM3 3.35 TB/s (H100 SXM data sheet); per SM and clock on cc 9.0, 64
+# 32-bit integer adds, shifts or logic operations and 16 population
+# counts (CUDA C++ Programming Guide, arithmetic instruction throughput),
+# times the SMs and the card's maximum SM clock from nvidia-smi.
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_CLK_SM = 64
+POPC_PER_CLK_SM = 16
+THREEFRY_OPS = 90     # 32-bit operations of one Threefry-2x32 draw
+
+
+def card_rates(torch):
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    hz = float(res.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("env", f"{sms} SMs at up to {hz / 1e6:.0f} MHz: "
+               f"{sms * INT32_PER_CLK_SM * hz:.4g} int32 op/s, "
+               f"{sms * POPC_PER_CLK_SM * hz:.4g} popc/s")
+    return {"int32": sms * INT32_PER_CLK_SM * hz,
+            "popc": sms * POPC_PER_CLK_SM * hz}
+
+
+def nbytes(*objs):
+    """Bytes of every tensor in (nested dicts, lists or tuples of) objs."""
+    import torch
+    n = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            n += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            n += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            n += nbytes(*o)
+    return n
+
+
+def bound(n_bytes, ops=0.0, rate=1.0):
+    """(bound_ms, bound_by) of n_bytes moved and ops at `rate` per s."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_kernels(torch, card):
@@ -578,7 +641,27 @@ def phase_batch(torch, card):
     log("batch", f"time, one chunk of {S_chunk} x 40 kb at M=8 on {card}: "
                  + "; ".join(f"{k} kernel {v[0]:.4f} ms vs plain "
                              f"{v[1]:.4f} ms" for k, v in times.items()))
-    return errs, times
+    # bounds at the same shape: bytes in and out; clonR's Threefry draws
+    # (50 per drawn cell); select_rows reads row and any_snp whole and the
+    # selected cells' values (as many bytes as it writes)
+    rates = card_rates(torch)
+    core = C.site_stats_core(c, r, nl, fl, 5, 50)
+    rows, link = CC.select_rows(full, seg)
+    med = CC.masked_median(*med_args, seg)
+    keys_agg = ("total", "clon", "clonR", "row", "morphia", "cls", "present")
+    drawn = int(full["clonR_set"].sum())
+    bounds = {
+        "site_stats": bound(nbytes(c, r, nl, fl, core)),
+        "clonR": bound(nbytes(args[:3], full["clonR"]),
+                       drawn * 50 * THREEFRY_OPS, rates["int32"]),
+        "select_rows": bound(nbytes(full["row"], full["any_snp"]) +
+                             2 * nbytes(rows, link)),
+        "mm_aggregates": bound(nbytes([full[k] for k in keys_agg],
+                                      agg, cf, rf)),
+        "masked_median": bound(nbytes(med_args, med))}
+    log("batch", "bounds at that shape: " + "; ".join(
+        f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
+    return errs, times, bounds
 
 
 def compare_nan_equal(want, got, what):
@@ -1000,6 +1083,287 @@ def phase_end_to_end(torch):
     return launches, ld_args[-1]
 
 
+# ---------------------------------------------------------------- compare
+
+
+def random_words(rng, N, Mg, L):
+    """Packed masks uint64 [N, Mg, ceil(L / 64)] of random bits at a
+    density of 1/4, 1/2 or 3/4 per sample, zero past L."""
+    import numpy as np
+    W = -(-L // 64)
+    words = rng.integers(0, 2 ** 64, (N, Mg, W), dtype=np.uint64)
+    for n in range(N):
+        other = rng.integers(0, 2 ** 64, (Mg, W), dtype=np.uint64)
+        if n % 3 == 0:
+            words[n] &= other
+        elif n % 3 == 2:
+            words[n] |= other
+    if L % 64:
+        words[:, :, -1] &= np.uint64((1 << (L % 64)) - 1)
+    return words
+
+
+def phase_compare_kernel(torch, card, rates):
+    """The overlap_counts kernel (K7) against its plain version and the
+    host popcount, exact at five shapes; then the kernel, the plain
+    version, the host path and the bf16 matrix product of the unpacked
+    bits (the JAX package's method, the yardstick) in turns at two."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import compare as K
+    from instrain_tpu_torch.kernels import cuda_compare as CC
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    shapes = [(2, 1, 1), (3, 2, 4099), (8, 5, 40_000), (16, 4, 1 << 23),
+              (64, 3, 100_000)]
+    times = {}
+    for N, Mg, L in shapes:
+        words = random_words(rng, N, Mg, L)
+        t = torch.from_numpy(words.view(np.int64)).to(dev)
+        got = CC.overlap_counts(t)
+        plain = K.overlap_counts_plain(t)
+        torch.cuda.synchronize()
+        host = K.pairwise_overlap_counts_host(words)
+        for ref, what in ((plain, "plain"), (host, "host")):
+            for x, y, k in zip(got, ref, ("both", "single")):
+                y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+                check(np.array_equal(x.cpu().numpy(), y),
+                      f"overlap_counts N={N} Mg={Mg} L={L}: {k} differs "
+                      f"from the {what} path")
+        log("compare", f"overlap_counts N={N} Mg={Mg} L={L}: == plain and "
+                       f"== host popcount, exact (diagonal sum "
+                       f"{int(got[1].sum())})")
+        if (N, Mg, L) not in ((8, 5, 40_000), (16, 4, 1 << 23)):
+            continue
+        # the yardstick: bits unpacked to bf16 [Mg, N, L] once, outside
+        # the timing, then one batched product with f32 results
+        bits = torch.from_numpy(K.unpack_words(words, L)).to(dev)
+        x = bits.to(torch.bfloat16).permute(1, 0, 2).contiguous()
+        del bits
+        xt = x.transpose(1, 2)
+
+        def library():
+            return torch.bmm(x, xt, out_dtype=torch.float32)
+
+        lib_out = library()
+        check(torch.equal(lib_out.to(torch.int64), got[0]),
+              f"bf16 product at N={N} Mg={Mg} L={L} is not exact")
+        k_ms, p_ms = timed_pair(torch, lambda: CC.overlap_counts(t),
+                                lambda: K.overlap_counts_plain(t), 20, 3)
+        l1 = cuda_ms(torch, library, 10)
+        h = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            K.pairwise_overlap_counts_host(words)
+            h.append((time.perf_counter() - t0) * 1e3)
+        l2 = cuda_ms(torch, library, 10)
+        pops = N * (N + 1) // 2 * Mg * -(-L // 32)
+        b_ms, b_by = bound(words.nbytes + nbytes(got), pops, rates["popc"])
+        times[(N, Mg, L)] = dict(ms=k_ms, plain_ms=p_ms, host_ms=min(h),
+                                 library_ms=(l1 + l2) / 2, bound_ms=b_ms,
+                                 bound_by=b_by)
+        log("compare", f"time N={N} Mg={Mg} L={L} on {card}: kernel "
+                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, host numpy "
+                       f"{min(h):.4f} ms, bf16 bmm (unpacked, f32 out) "
+                       f"{(l1 + l2) / 2:.4f} ms; bound {b_ms:.4f} ms "
+                       f"({b_by}: {words.nbytes} bytes, {pops} popc)")
+        del x, xt, lib_out
+    return times
+
+
+def phase_compare_crossover(torch, card):
+    """The host popcount against the kernel with its copies (words to the
+    card, counts back), as compare/pipeline.py:overlap_counts runs them,
+    over the work n^2 * Mg * L that the auto engine's bound reads."""
+    import numpy as np
+    from instrain_tpu_torch.compare import pipeline as CP
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    rows = []
+    for N in (8, 32):
+        for L in (1 << k for k in range(6, 23, 2)):
+            words = random_words(rng, N, 4, L)
+            ms = {}
+            for eng in ("host", "device", "device", "host"):
+                CP.overlap_counts(words, L, eng, dev)     # warm
+                best = float("inf")
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    CP.overlap_counts(words, L, eng, dev)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                ms.setdefault(eng, []).append(best * 1e3)
+            host, device = min(ms["host"]), min(ms["device"])
+            rows.append((N * N * 4 * L, N, L, host, device))
+            log("compare", f"crossover N={N} Mg=4 L={L} (n^2*Mg*L = "
+                           f"{N * N * 4 * L:.3g}) on {card}: host "
+                           f"{host:.4f} ms, kernel with copies "
+                           f"{device:.4f} ms")
+    faster = [w for w, _, _, h, d in rows if d < h]
+    log("compare", f"kernel with copies faster than the host from "
+                   f"n^2*Mg*L = {min(faster) if faster else 'never'} on in "
+                   f"this sweep; the auto bound is {CP.DEVICE_MIN_WORK}")
+
+
+def phase_compare_e2e(torch):
+    """compare end to end: 8 samples of the benchmark metagenome (128 x
+    40 kb, 4 genomes of 32 scaffolds, 10-40x) profiled through the CLI on
+    the card with genome-wide aggregation (a process each, at once), then
+    compared on the card with the overlap_counts kernel (every launch
+    count reset just before and read just after), with the host engine,
+    on the CPU (the plain version) and with --engine auto (without
+    pooling and the stores); the TSVs byte for byte."""
+    import numpy as np
+    import pandas as pd
+    from instrain_tpu_torch.cli import main
+    from instrain_tpu_torch.compare import pipeline as CP
+    from instrain_tpu_torch.kernels import cuda_compact as CCP
+    from instrain_tpu_torch.kernels import cuda_compare as CC
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
+    from instrain_tpu_torch.synth import synth_samples
+
+    d = os.path.join(WORK, "compare")
+    os.makedirs(d)
+    covs = [10 + 30 * i / 7 for i in range(8)]
+    t0 = time.perf_counter()
+    fasta, bams, stb = synth_samples(d, 8, 128, 40_000, covs, seed=11,
+                                     n_genomes=4)
+    log("e2e", f"synth_samples: 8 samples of 128 x 40 kb, 4 genomes, "
+               f"{covs[0]:.0f}-{covs[-1]:.0f}x: "
+               f"{time.perf_counter() - t0:.2f} s")
+    # the 8 profiles are set-up, not the path under test: one CLI process
+    # each, all at once on the card
+    profiles = [os.path.join(d, f"s{i}.IS") for i in range(8)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for bam, out in zip(bams, profiles):
+            with open(out + ".log", "w") as logf:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "instrain_tpu_torch.cli",
+                     "profile", bam, fasta, "-o", out, "--device", "cuda",
+                     "-s", stb, "--skip_plot_generation", "-p", "1"],
+                    cwd=ROOT, env=env, stdout=logf,
+                    stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (rc, out) in enumerate(zip(rcs, profiles)):
+        check(rc == 0, f"profile of sample {i} exited {rc} (see "
+                       f"{out}.log)")
+        info = read_table(out, "genome_info")
+        check(list(info["genome"]) == [f"genome_{g}" for g in range(4)] and
+              np.isfinite(info["coverage"]).all(),
+              f"sample {i}: genome_info is not 4 finite genomes")
+    log("e2e", f"8 profiles on the card with genome-wide aggregation, one "
+               f"process each, at once: {time.perf_counter() - t0:.2f} s")
+
+    # every (scaffold, pair, mm level) the comparison must report
+    want = 0
+    levels = [{s: set(m) for s, m in ProfileDir(p).get("covT").items()}
+              for p in profiles]
+    scaffolds = set.intersection(*(set(lv) for lv in levels))
+    check(len(scaffolds) == 128, f"{len(scaffolds)} scaffolds in common")
+    for s in scaffolds:
+        for i in range(8):
+            for j in range(i + 1, 8):
+                want += len(levels[i][s] | levels[j][s])
+    del levels
+
+    lean = ["-s", stb, "--skip_plot_generation"]
+    flags = lean + ["--bams"] + bams + ["--store_mismatch_locations",
+                                        "--store_coverage_overlap"]
+    failures = []
+    real_log_failure = CP.log_failure
+    CP.log_failure = lambda kind, unit, detail="": failures.append(
+        (kind, unit, detail))
+    runs = {}
+    try:
+        # auto shows the engine rule (no launch below its bound), without
+        # pooling and the stores, which no engine changes
+        for tag, engine, device in (("device", "device", "cuda"),
+                                    ("host", "host", "cuda"),
+                                    ("cpu", "device", "cpu"),
+                                    ("auto", "auto", "cuda")):
+            out = os.path.join(d, f"{tag}.RC")
+            for mod in (C, CCP, CL, CC):
+                mod.reset_launch_counts()
+            CP.PHASES = {}
+            t0 = time.perf_counter()
+            check(main(["compare", "-i"] + profiles + ["-o", out,
+                        "--device", device, "--engine", engine] +
+                       (lean if tag == "auto" else flags)) == 0,
+                  f"compare {tag} failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {**C.launch_counts(), **CCP.launch_counts(),
+                   **CL.launch_counts(), **CC.launch_counts()}
+            phases = dict(CP.PHASES)
+            CP.PHASES = None
+            runs[tag] = (out, got)
+            log("e2e", f"compare --engine {engine} --device {device}: wall "
+                       f"{wall:.2f} s, overlap stage "
+                       f"{phases.get('overlap', 0.0):.3f} s; phases (s): "
+                       + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   phases.items()) + f"; launches {got}")
+    finally:
+        CP.log_failure = real_log_failure
+    check(not failures, f"compare logged failures: {failures[:3]}")
+
+    out, got = runs["device"]
+    check(got["overlap_counts"] == 128 and
+          sum(got.values()) == got["overlap_counts"],
+          f"compare --engine device: launches {got}, expected "
+          f"overlap_counts once for each of the 128 scaffolds")
+    for tag in ("host", "cpu", "auto"):
+        check(sum(runs[tag][1].values()) == 0,
+              f"compare {tag}: launches {runs[tag][1]}, expected none")
+    tables = ["comparisonsTable", "genomeWide_compare", "strain_clusters",
+              "pairwise_SNP_locations", "pooled_SNV_info", "pooled_SNV_data",
+              "pooled_SNV_data_keys"]
+    texts = {}
+    for tag, (rc, _) in runs.items():
+        texts[tag] = {}
+        for t in tables[:3] if tag == "auto" else tables:
+            path = os.path.join(rc, "output", f"{tag}.RC_{t}.tsv")
+            check(os.path.exists(path), f"{path} was not written")
+            with open(path) as f:
+                texts[tag][t] = f.read()
+            check(texts[tag][t].count("\n") > 1, f"{path} has no rows")
+    for tag in ("host", "cpu", "auto"):
+        check(all(texts[tag][t] == texts["device"][t] for t in texts[tag]),
+              f"compare {tag}: TSVs differ from the --engine device run")
+    rc = ProfileDir(out)
+    cdb = rc.get("comparisonsTable")
+    keys = cdb[["scaffold", "name1", "name2", "mm"]].drop_duplicates()
+    check(len(cdb) == want and len(keys) == want,
+          f"comparisonsTable has {len(cdb)} rows ({len(keys)} distinct), "
+          f"expected one per (scaffold, pair, mm level): {want}")
+    check(np.isfinite(cdb["coverage_overlap"]).all() and
+          (cdb["compared_bases_count"] > 0).all(),
+          "comparisonsTable: empty or non-finite overlaps")
+    one = rc.get("scaff2pair2mm2cov", scaffolds=["scaf_0"])
+    check(len(one.get("scaf_0", {})) == 28,
+          "scaff2pair2mm2cov lacks scaf_0's 28 pairs")
+    clusters = pd.read_csv(os.path.join(out, "output",
+                                        "device.RC_strain_clusters.tsv"),
+                           sep="\t")
+    per_genome = clusters.groupby("genome")["cluster"].nunique().tolist()
+    log("e2e", f"compare: {want} (scaffold, pair, mm) rows, 128 launches "
+               f"of overlap_counts; the host engine's and --device cpu's "
+               f"TSVs, and auto's (0 launches) comparison, genome and "
+               f"cluster TSVs byte-identical to it; strain clusters per "
+               f"genome {per_genome}")
+    return got["overlap_counts"]
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1033,10 +1397,14 @@ def main():
     errs, _ = phase_kernels(torch, card)
     cerrs, _ = phase_compact(torch, card)
     errs.update(cerrs)
-    berrs, times = phase_batch(torch, card)
+    berrs, times, bounds = phase_batch(torch, card)
     errs = {k: max(v, berrs.get(k, 0.0)) for k, v in errs.items()}
     errs["ld"] = phase_linkage(torch, card)
+    rates = card_rates(torch)
+    k7 = phase_compare_kernel(torch, card, rates)
+    phase_compare_crossover(torch, card)
     launches, ld_args = phase_end_to_end(torch)
+    launches["overlap_counts"] = phase_compare_e2e(torch)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
 
@@ -1047,10 +1415,14 @@ def main():
     times["ld"] = timed_pair(torch, lambda: CL.ld(*ld_args),
                              lambda: CL.ld_plain(*ld_args), 20, 3)
     E, M, _ = ld_args[3].shape
+    ld_out = CL.ld(*ld_args)
+    # each (edge, mm) cell draws min_snp categorical samples
+    bounds["ld"] = bound(nbytes(ld_args[:7], ld_out),
+                         E * M * ld_args[8] * THREEFRY_OPS, rates["int32"])
     log("linkage", f"time at the deep input's shape (E={E} edges, M={M}, "
                    f"{ld_args[0].numel()} pairs) on {card}: ld kernel "
                    f"{times['ld'][0]:.4f} ms vs plain {times['ld'][1]:.4f} "
-                   f"ms")
+                   f"ms; bound {bounds['ld'][0]:.4f} ms ({bounds['ld'][1]})")
 
     kernels = [
         {"name": "site_stats", "route": "cuda",
@@ -1080,6 +1452,18 @@ def main():
          "launches": launches["ld"], "max_abs_err": errs["ld"],
          "ms": times["ld"][0], "plain_ms": times["ld"][1]}
     ]
+    # no single PyTorch call computes K1-K6: library_ms is null for them
+    for k in kernels:
+        k.update(bound_ms=bounds[k["name"]][0],
+                 bound_by=bounds[k["name"]][1], library_ms=None)
+    main_shape = k7[(8, 5, 40_000)]     # the compare run's 8 samples
+    kernels.append(
+        {"name": "overlap_counts", "route": "cuda",
+         "source": "instrain_tpu_torch/csrc/compare.cu",
+         "replaces": "instrain_tpu/kernels/compare.py:39",
+         "launches": launches["overlap_counts"], "max_abs_err": 0.0,
+         **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}})
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

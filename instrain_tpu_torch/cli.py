@@ -1,12 +1,16 @@
 """
-Command-line interface of the port: the `profile` subcommand of
-instrain_tpu's CLI (reference: inStrain/argumentParser.py:55-398), with
-the same flags plus --device. Flags whose feature is not ported yet are
-accepted by the parser and raise an error that names the ROADMAP.md item
-(profile/pipeline.py:check_supported); none is ignored.
+Command-line interface of the port: the `profile`, `compare` and
+`genome_wide` subcommands of instrain_tpu's CLI (reference:
+inStrain/argumentParser.py:55-398), with the same flags plus --device.
+Flags whose feature is not ported yet are accepted by the parser and raise
+an error that names the ROADMAP.md item (profile/pipeline.py and
+compare/pipeline.py: check_supported); none is ignored.
 
-    instrain_tpu_torch profile BAM FASTA -o OUT --device cuda \\
-        --skip_genome_wide --skip_plot_generation
+    instrain_tpu_torch profile BAM FASTA -o OUT.IS -s STB --device cuda \\
+        --skip_plot_generation
+    instrain_tpu_torch compare -i A.IS B.IS -o OUT.RC -s STB \\
+        --skip_plot_generation --device cuda
+    instrain_tpu_torch genome_wide -i OUT.IS -s STB
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import argparse
 import sys
 
 from . import __version__
-from .config import ProfileConfig
+from .config import CompareConfig, ProfileConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,18 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--force_compress", action="store_true",
                    help="gzip all output tables")
 
-    g = p.add_argument_group("SYSTEM PARAMETERS")
-    g.add_argument("-p", "--processes", default=6, type=int,
-                   help="host threads for the native BAM decoder")
-    g.add_argument("-d", "--debug", action="store_true", default=False,
-                   help="write a runtime/failure summary to "
-                        "<out>/log/runtime_summary.txt")
-    g.add_argument("--version", action="version",
-                   version=f"instrain_tpu_torch version {__version__}")
-    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the site-stats kernels run: cuda (needs a "
-                        "GPU; no fallback) or cpu (their plain PyTorch "
-                        "versions)")
+    add_system(p)
+    add_device(p)
 
     g = p.add_argument_group("READ FILTERING OPTIONS")
     g.add_argument("-l", "--min_read_ani", default=0.95, type=float,
@@ -80,31 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=False,
                    help="also store a per-read filter report")
 
-    g = p.add_argument_group("VARIANT CALLING OPTIONS")
-    g.add_argument("-c", "--min_cov", default=5, type=int,
-                   help="minimum coverage for a position to be "
-                        "variant-callable")
-    g.add_argument("-f", "--min_freq", default=0.05, type=float,
-                   help="minimum allele frequency for a base to be "
-                        "'present'")
-    g.add_argument("-fdr", "--fdr", default=1e-6, type=float,
-                   help="null-model false discovery rate")
-    g.add_argument("--null_model", default="analytic",
-                   help="'analytic' (exact binomial) or the path to an "
-                        "inStrain-format NullModel.txt")
+    add_variant(p)
 
     p.add_argument("-g", "--gene_file", default=None,
                    help="genes to profile (not ported yet: raises)")
-    p.add_argument("-s", "--stb", nargs="*", default=[],
-                   help="scaffold-to-bin file(s) (used by "
-                        "--min_genome_coverage)")
-    p.add_argument("--mm_level", action="store_true", default=False,
-                   help="accepted for compatibility; the port's profile "
-                        "tables are the non-redundant view")
-    p.add_argument("--skip_mm_profiling", action="store_true",
-                   default=False,
-                   help="collapse the read-mismatch axis (all reads "
-                        "count at level 0)")
+    add_stb(p)
+    add_mm(p)
 
     g = p.add_argument_group("PROFILE OPTIONS")
     g.add_argument("--database_mode", action="store_true",
@@ -129,8 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--window_length", default=10000, type=int,
                    help="genome window size for linkage")
     g.add_argument("--skip_genome_wide", action="store_true",
-                   help="do not aggregate to genome_info (required: "
-                        "genome-wide aggregation is not ported yet)")
+                   help="do not aggregate to genome_info at the end")
     g.add_argument("--skip_plot_generation", action="store_true",
                    help="do not draw the figures (required: plots are "
                         "not ported yet)")
@@ -150,7 +124,128 @@ def build_parser() -> argparse.ArgumentParser:
                         "above 1)")
     g.add_argument("--distributed", action="store_true",
                    help="multi-host run (not ported yet: raises)")
+
+    p = sub.add_parser(
+        "compare",
+        help="compare >=2 profiles mapped to the same FASTA "
+             "(popANI/conANI, clustering, pooling)",
+        description="Pairwise scaffold comparisons between profiles: "
+                    "coverage overlap (the overlap_counts kernel), "
+                    "conANI/popANI per mm level, genome rollup, strain "
+                    "clustering, SNV pooling.")
+    p.add_argument("-i", "--input", nargs="*", required=True,
+                   help="two or more profile directories (same FASTA)")
+    p.add_argument("-o", "--output", default="instrainComparer",
+                   help="output comparison directory")
+    add_system(p)
+    add_device(p)
+    add_stb(p)
+    add_variant(p)
+    g = p.add_argument_group("OTHER OPTIONS")
+    g.add_argument("--database_mode", action="store_true",
+                   help="only compare scaffolds of genomes detected "
+                        "(breadth_minCov >= --breadth) in each profile")
+    g.add_argument("--breadth", default=0.5, type=float,
+                   help="genome breadth_minCov needed for database_mode")
+    g.add_argument("-sc", "--scaffolds", default=None,
+                   help="file listing the only scaffolds to compare")
+    g.add_argument("--genome", default=None,
+                   help="only compare scaffolds of this genome (needs -s)")
+    g.add_argument("--store_coverage_overlap", action="store_true",
+                   help="store the per-pair coverage-overlap arrays")
+    g.add_argument("--store_mismatch_locations", action="store_true",
+                   help="store every pairwise SNP location")
+    g.add_argument("--include_self_comparisons", action="store_true",
+                   help="also compare each profile against itself")
+    g.add_argument("--skip_plot_generation", action="store_true",
+                   help="do not draw the dendrogram figure (required with "
+                        "-s: plots are not ported yet)")
+    g.add_argument("--group_length", default=10000000, type=int,
+                   help="genome bp per comparison batch (bounds RAM)")
+    g.add_argument("--force_compress", action="store_true",
+                   help="gzip all output tables")
+    g.add_argument("-ani", "--ani_threshold", default=0.99999, type=float,
+                   help="popANI threshold for strain clustering")
+    g.add_argument("-cov", "--coverage_treshold", default=0.1, type=float,
+                   help="minimum percent_compared for clustering edges")
+    g.add_argument("--clusterAlg", default="average",
+                   choices=["single", "complete", "average", "weighted",
+                            "centroid", "median", "ward"],
+                   help="scipy hierarchy linkage method")
+    g.add_argument("-bams", "--bams", nargs="*", default=[],
+                   help="the profiles' BAMs (same order as -i): enables "
+                        "cross-sample SNV pooling")
+    g.add_argument("--skip_popANI", action="store_true",
+                   help="stop after coverage overlap (no SNP comparing)")
+    g.add_argument("--engine", default="auto",
+                   choices=["auto", "host", "device"],
+                   help="overlap-count engine: device = the overlap_counts "
+                        "kernel on --device (its plain version on cpu), "
+                        "host = numpy popcount (the same integers); auto "
+                        "takes the kernel on cuda from n^2 * Mg * L >= "
+                        "2^33 on")
+
+    p = sub.add_parser(
+        "genome_wide",
+        help="(re)aggregate scaffold metrics to genomes (incl. iRep)",
+        description="Roll scaffold profiles up to genome_info using a "
+                    "scaffold-to-bin mapping.")
+    p.add_argument("-i", "--IS", required=True,
+                   help="an existing profile directory")
+    # accepted but unused, as in the reference (argumentParser.py:287-298)
+    p.add_argument("--store_everything", action="store_true")
+    add_stb(p)
+    add_mm(p)
+    add_system(p)
     return parser
+
+
+def add_system(p):
+    g = p.add_argument_group("SYSTEM PARAMETERS")
+    g.add_argument("-p", "--processes", default=6, type=int,
+                   help="host threads for the native BAM decoder")
+    g.add_argument("-d", "--debug", action="store_true", default=False,
+                   help="write a runtime/failure summary to "
+                        "<out>/log/runtime_summary.txt")
+    g.add_argument("--version", action="version",
+                   version=f"instrain_tpu_torch version {__version__}")
+
+
+def add_device(p):
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the kernels run: cuda (needs a GPU; no "
+                        "fallback) or cpu (their plain PyTorch versions)")
+
+
+def add_stb(p):
+    p.add_argument("-s", "--stb", nargs="*", default=[],
+                   help="scaffold-to-bin file(s) (tsv) or genome fastas; "
+                        "default treats all scaffolds as one genome")
+
+
+def add_mm(p):
+    p.add_argument("--mm_level", action="store_true", default=False,
+                   help="emit genome tables at every mismatch level "
+                        "instead of the non-redundant view")
+    p.add_argument("--skip_mm_profiling", action="store_true",
+                   default=False,
+                   help="collapse the read-mismatch axis (all reads "
+                        "count at level 0)")
+
+
+def add_variant(p):
+    g = p.add_argument_group("VARIANT CALLING OPTIONS")
+    g.add_argument("-c", "--min_cov", default=5, type=int,
+                   help="minimum coverage for a position to be "
+                        "variant-callable")
+    g.add_argument("-f", "--min_freq", default=0.05, type=float,
+                   help="minimum allele frequency for a base to be "
+                        "'present'")
+    g.add_argument("-fdr", "--fdr", default=1e-6, type=float,
+                   help="null-model false discovery rate")
+    g.add_argument("--null_model", default="analytic",
+                   help="'analytic' (exact binomial) or the path to an "
+                        "inStrain-format NullModel.txt")
 
 
 def profile_config_from_args(args) -> ProfileConfig:
@@ -193,20 +288,53 @@ def main(argv=None):
         return 0
 
     from .obs.logging import setup_logger
-    from .profile.pipeline import check_supported, profile, unported
     from .store.profile_dir import ProfileDir
 
-    if args.distributed:
-        raise unported("--distributed", "item 7: multiple GPUs and hosts")
-    cfg = profile_config_from_args(args)
-    check_supported(cfg)
-    output = args.output
-    if output == "inStrain":
-        output = args.fasta.split(".")[0].split("/")[-1]
-    cfg.output = output
-    isdir = ProfileDir(output)
-    setup_logger(isdir.get_location("log") + "log.log")
-    profile(args.bam, args.fasta, cfg)
+    if args.operation == "profile":
+        from .profile.pipeline import check_supported, profile, unported
+        if args.distributed:
+            raise unported("--distributed",
+                           "item 7: multiple GPUs and hosts")
+        cfg = profile_config_from_args(args)
+        check_supported(cfg)
+        output = args.output
+        if output == "inStrain":
+            output = args.fasta.split(".")[0].split("/")[-1]
+        cfg.output = output
+        isdir = ProfileDir(output)
+        setup_logger(isdir.get_location("log") + "log.log")
+        profile(args.bam, args.fasta, cfg)
+
+    elif args.operation == "compare":
+        from .compare.pipeline import check_supported, compare
+        cfg = CompareConfig(
+            output=args.output, processes=args.processes, stb=args.stb,
+            min_cov=args.min_cov, min_freq=args.min_freq, fdr=args.fdr,
+            null_model=args.null_model, database_mode=args.database_mode,
+            breadth=args.breadth, scaffolds=args.scaffolds,
+            genome=args.genome,
+            store_coverage_overlap=args.store_coverage_overlap,
+            store_mismatch_locations=args.store_mismatch_locations,
+            include_self_comparisons=args.include_self_comparisons,
+            skip_plot_generation=args.skip_plot_generation,
+            group_length=args.group_length,
+            force_compress=args.force_compress,
+            ani_threshold=args.ani_threshold,
+            coverage_treshold=args.coverage_treshold,
+            clusterAlg=args.clusterAlg, bams=args.bams or [],
+            skip_popANI=args.skip_popANI, engine=args.engine,
+            device=args.device)
+        check_supported(cfg)
+        out = ProfileDir(args.output)
+        setup_logger(out.get_location("log") + "log.log")
+        compare(args.input, cfg)
+
+    elif args.operation == "genome_wide":
+        from .profile.genome import genome_wide
+        isdir = ProfileDir(args.IS)
+        setup_logger(isdir.get_location("log") + "log.log")
+        genome_wide(isdir, stb=args.stb, mm_level=args.mm_level,
+                    skip_mm_profiling=args.skip_mm_profiling)
     return 0
 
 

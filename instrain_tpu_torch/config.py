@@ -80,3 +80,35 @@ class ProfileConfig:
             self.skip_mm_profiling = True
             self.min_genome_coverage = 1
         return self
+
+
+@dataclass
+class CompareConfig:
+    """`compare` operation (reference: argumentParser.py:183-239)."""
+
+    output: str = "instrainComparer"
+    processes: int = 6
+    stb: List[str] = field(default_factory=list)
+    min_cov: int = 5
+    min_freq: float = 0.05
+    fdr: float = 1e-6
+    null_model: str = "analytic"
+    database_mode: bool = False
+    breadth: float = 0.5
+    scaffolds: Optional[str] = None
+    genome: Optional[str] = None
+    store_coverage_overlap: bool = False
+    store_mismatch_locations: bool = False
+    include_self_comparisons: bool = False
+    skip_plot_generation: bool = False
+    group_length: int = 10_000_000
+    force_compress: bool = False
+    ani_threshold: float = 0.99999
+    coverage_treshold: float = 0.1    # (sic) reference spelling kept for CLI parity
+    clusterAlg: str = "average"
+    bams: List[str] = field(default_factory=list)
+    skip_popANI: bool = False
+    # overlap-count engine: auto | host | device (compare/pipeline.py:
+    # use_device_overlap; device = the overlap_counts kernel on `device`)
+    engine: str = "auto"
+    device: str = "cuda"

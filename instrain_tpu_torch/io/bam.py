@@ -20,6 +20,8 @@ pileup parameters compute_baq=True, ignore_overlaps=True; pass
 from __future__ import annotations
 
 import ctypes as ct
+import logging
+import os
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -49,6 +51,8 @@ def _bind(lib):
     lib.bd_open.argtypes = [ct.c_char_p, ct.c_int]
     lib.bd_open_sam.restype = ct.c_void_p
     lib.bd_open_sam.argtypes = [ct.c_char_p]
+    lib.bd_open_ranged.restype = ct.c_void_p
+    lib.bd_open_ranged.argtypes = [ct.c_char_p, ct.c_int, ct.c_char_p]
     lib.bd_error.restype = ct.c_char_p
     lib.bd_free.argtypes = [ct.c_void_p]
     lib.bd_ref_name.restype = ct.c_char_p
@@ -177,6 +181,7 @@ class BamArrays:
     # qnames (lazy: most paths only need ids)
     _qnames: Optional[List[str]] = None
     n_qnames: int = 0
+    ranged: bool = False          # decoded only the asked scaffolds' ranges
     _handle_obj: Optional[_NativeHandle] = None
 
     @property
@@ -252,18 +257,36 @@ def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
                threads: int = 6, baq: bool = False,
                tweak_overlaps: bool = True,
                tweak_orphans: bool = False,
-               tweak_legacy_walk: bool = True) -> BamArrays:
+               tweak_legacy_walk: bool = True,
+               scaffolds: Optional[List[str]] = None) -> BamArrays:
     """
     Decode a BAM (or SAM) file.
 
     ref_seqs: {ref_name: uint8 ASCII array} — required for BAQ (uppercased
     reference sequences, e.g. from io.fasta.read_fasta).
+    scaffolds: decode only these scaffolds' ranges, through the .bai
+    (native bd_open_ranged), where the BAM has an index beside it; a full
+    decode otherwise. The result's `ranged` says which ran.
     """
     lib = _load_lib()
+    ranged = False
+    h = None
     if _is_sam(path):
         h = lib.bd_open_sam(path.encode())
     else:
-        h = lib.bd_open(path.encode(), threads)
+        if scaffolds is not None:
+            bais = [path + ".bai"]
+            if path.endswith(".bam"):
+                bais.append(path[:-4] + ".bai")
+            if any(os.path.exists(b) for b in bais):
+                h = lib.bd_open_ranged(path.encode(), threads,
+                                       "\n".join(scaffolds).encode())
+                ranged = bool(h)
+                if not h:
+                    logging.debug(f"ranged decode failed "
+                                  f"({lib.bd_error().decode()}); full decode")
+        if not h:
+            h = lib.bd_open(path.encode(), threads)
     if not h:
         raise IOError(f"BAM decode failed: {lib.bd_error().decode()}")
     try:
@@ -299,6 +322,7 @@ def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
                                np.dtype(typ), ho)
         out = BamArrays(ref_names=ref_names, ref_lens=ref_lens, **fields)
         out.n_qnames = int(lib.bd_n_qnames(hp))
+        out.ranged = ranged
         out._handle_obj = ho
         return out
     finally:

@@ -10,10 +10,10 @@ with the hybrid and batch engines, the device compaction (K4), so that
 only table-ready outputs come back; the batch engine (K5) runs many
 scaffolds per launch, the hybrid engine one — build the SNV, scaffold
 and linkage tables on the host (linkage of scaffolds with many captured
-pairs through the device LD kernel, K6), and store the profile directory
-and its TSVs. Genome-wide
-aggregation and plots are not ported yet: asking for them raises
-(ROADMAP.md).
+pairs through the device LD kernel, K6), store the profile directory and
+its TSVs, and (unless --skip_genome_wide) roll the scaffolds up to
+genomes (profile/genome.py). Genes and plots are not ported yet: asking
+for them raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 from . import compact as compact_mod
+from . import genome as genome_mod
 from . import linkage as linkage_mod
 from . import tables
 from .filter_reads import filter_reads
@@ -43,8 +44,8 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      make_luts, run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
-# per phase (decode, filter, pileup, kernels, tables, store) of a profile
-# run; None adds no timers. chip_smoke.py reads it.
+# per phase (decode, filter, pileup, kernels, tables, store, genome) of a
+# profile run; None adds no timers. chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
 
 
@@ -82,9 +83,6 @@ def check_supported(cfg: ProfileConfig) -> None:
                        "--engine pallas: use --engine dense")
     if cfg.gene_file is not None:
         raise unported("gene profiling (-g/--gene_file)",
-                       "item 4: genes and genome")
-    if not cfg.skip_genome_wide:
-        raise unported("genome-wide aggregation (pass --skip_genome_wide)",
                        "item 4: genes and genome")
     if not cfg.skip_plot_generation:
         raise unported("plots (pass --skip_plot_generation)",
@@ -254,6 +252,13 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         # outputs (reference: controller.py:352-360)
         for t in ["SNVs", "scaffold_info", "linkage", "mapping_info"]:
             gen.generate(isdir, t, force_compress=cfg.force_compress)
+    if not cfg.skip_genome_wide:
+        # instrain_tpu/profile/pipeline.py:391-396
+        log_checkpoint("main_profile", "genome_wide", "start")
+        with _phase("genome"):
+            genome_mod.genome_wide(isdir, stb=cfg.stb, mm_level=cfg.mm_level,
+                                   skip_mm_profiling=cfg.skip_mm_profiling)
+        log_checkpoint("main_profile", "genome_wide", "end")
     if cfg.debug:
         # runtime/failure report (reference: controller.py:121-129 +
         # logUtils.report_run_stats)
@@ -291,7 +296,7 @@ def _store_read_results(isdir, bam, pairs, bam_path, fasta_path, registry,
                 else "Read pair -> mismatches")
 
 
-def _is_device_error(e: BaseException) -> bool:
+def is_device_error(e: BaseException) -> bool:
     """A kernel fault or any CUDA runtime error: never contained."""
     if isinstance(e, (KernelError, torch.cuda.OutOfMemoryError)):
         return True
@@ -306,7 +311,7 @@ def _contain(name: str, e: Exception) -> None:
     profile_utilities.py:92-112 SplitException / MergeError); a kernel or
     CUDA fault is re-raised: it fails the run instead of hiding behind a
     dropped scaffold while the run exits 0."""
-    if _is_device_error(e):
+    if is_device_error(e):
         raise e
     log_failure("SplitException", name, str(e))
     logging.error(f"whole scaffold exception- {name}")

@@ -2,17 +2,21 @@
 User-facing output table generation for `profile` (reference:
 SNVprofile.generate, SNVprofile.py:192-443) with the exact column orders,
 plus the non-redundant (highest-mm) views (SNVprofile.py:471-548). The
-counterpart of instrain_tpu/store/generate.py for the tables this port's
-profile writes (SNVs, scaffold_info, linkage, mapping_info); the gene,
-genome, compare and pooled tables come with their modules (ROADMAP.md).
+counterpart of instrain_tpu/store/generate.py for the tables this port
+writes: profile's (SNVs, scaffold_info, linkage, mapping_info), the
+genome-wide genome_info, and compare's (comparisonsTable,
+pairwise_SNP_locations, pooled_SNV_info, pooled_SNV_data and its keys);
+gene_info comes with the genes module (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from collections import defaultdict
 from typing import Optional
 
+import numpy as np
 import pandas as pd
 
 from .profile_dir import ProfileDir
@@ -39,7 +43,34 @@ COLUMN_ORDERS = {
                 "allele_A", "allele_a",
                 "allele_B", "allele_b",
                 "countab", "countAb", "countaB", "countAB", "total"],
+    "genome_info": ["genome", "coverage", "breadth", "nucl_diversity",
+                    "length", "true_scaffolds", "detected_scaffolds",
+                    "coverage_median", "coverage_std", "coverage_SEM",
+                    "breadth_minCov", "breadth_expected",
+                    "nucl_diversity_rarefied",
+                    "conANI_reference", "popANI_reference",
+                    "iRep", "iRep_GC_corrected",
+                    "linked_SNV_count", "SNV_distance_mean", "r2_mean",
+                    "d_prime_mean",
+                    "consensus_divergent_sites",
+                    "population_divergent_sites",
+                    "SNS_count", "SNV_count",
+                    "filtered_read_pair_count",
+                    "reads_unfiltered_pairs",
+                    "reads_mean_PID"],
     "mapping_info": ["scaffold", "pass_pairing_filter", "filtered_pairs"],
+    "pairwise_SNP_locations": [
+        "mm", "scaffold", "position", "name1", "name2",
+        "consensus_SNP", "population_SNP",
+        "con_base_1", "ref_base_1", "var_base_1", "position_coverage_1",
+        "A_1", "C_1", "T_1", "G_1",
+        "con_base_2", "ref_base_2", "var_base_2", "position_coverage_2",
+        "A_2", "C_2", "T_2", "G_2"],
+    "pooled_SNV_info": ["scaffold", "position", "depth", "A", "C", "T", "G",
+                        "ref_base", "con_base", "var_base",
+                        "sample_detections", "sample_5x_detections",
+                        "DivergentSite_count", "SNS_count", "SNV_count",
+                        "con_SNV_count", "pop_SNV_count"],
 }
 
 
@@ -73,11 +104,22 @@ _NONREDUNDANT = {
     "scaffold_info": ("cumulative_scaffold_table", ["scaffold"], False),
     "linkage": ("raw_linkage_table",
                 ["scaffold", "position_A", "position_B"], False),
+    "comparisonsTable": ("comparisonsTable", ["scaffold", "name1", "name2"],
+                         False),
 }
 
 
-def generate(isdir: ProfileDir, name: str, force_compress: bool = False):
-    """Write <output>/<base>_<name>.tsv in the reference's schema."""
+def _write(isdir: ProfileDir, name: str, db: pd.DataFrame,
+           force_compress: bool) -> None:
+    ft = ".tsv.gz" if (len(db) > 1e6 or force_compress) else ".tsv"
+    db.to_csv(isdir.get_output_base() + name + ft, index=False, sep="\t")
+
+
+def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
+             force_compress: bool = False):
+    """Write <output>/<base>_<name>.tsv in the reference's schema.
+    mm_level keeps every mm level of genome_info and
+    pairwise_SNP_locations instead of the highest."""
     if name == "mapping_info":
         from ..profile.filter_reads import write_mapping_info
         db = isdir.get("mapping_info")
@@ -90,15 +132,91 @@ def generate(isdir: ProfileDir, name: str, force_compress: bool = False):
                 reorder_columns(db, COLUMN_ORDERS["mapping_info"]),
                 location, isdir.get("mapping_info_values"))
         return
-    if name not in _NONREDUNDANT:
+    if name == "pooled_SNV_data":
+        _generate_pooled_data(isdir, force_compress)
+        return
+
+    if name in _NONREDUNDANT:
+        attr, subset, drop_cryptic = _NONREDUNDANT[name]
+        db = nonredundant(isdir.get(attr), subset, drop_cryptic=drop_cryptic)
+        if name == "SNVs":
+            mdb = isdir.get("SNP_mutation_types")
+            if mdb is not None and len(mdb) > 0 and len(db) > 0:
+                mdb = mdb[["scaffold", "position", "mutation_type",
+                           "mutation", "gene"]]
+                db = pd.merge(db, mdb, how="left",
+                              on=["scaffold", "position"])
+        if name in COLUMN_ORDERS:
+            db = reorder_columns(db, COLUMN_ORDERS[name])
+    elif name == "genome_info":
+        db = _genome_info(isdir.get("genome_level_info"), mm_level)
+    elif name == "pairwise_SNP_locations":
+        db = reorder_columns(isdir.get("pairwise_SNP_locations"),
+                             COLUMN_ORDERS[name])
+        if db is not None and not mm_level and len(db) > 0:
+            db = (db.sort_values("mm")
+                    .drop_duplicates(subset=["scaffold", "position",
+                                             "name1", "name2"], keep="last")
+                    .sort_index().drop(columns=["mm"]))
+    elif name == "pooled_SNV_info":
+        db = isdir.get("PMdb")
+        if db is not None:
+            # PMdb's (unnamed) index is the position (reference:
+            # SNVprofile.py:373-375 assigns it explicitly)
+            db["position"] = db.index
+            db = reorder_columns(db.reset_index(drop=True),
+                                 COLUMN_ORDERS[name])
+    else:
         raise ValueError(f"do not know how to generate {name}")
 
-    attr, subset, drop_cryptic = _NONREDUNDANT[name]
-    db = reorder_columns(nonredundant(isdir.get(attr), subset,
-                                      drop_cryptic=drop_cryptic),
-                         COLUMN_ORDERS[name])
     if db is None:
         logging.info(f"Could not create {name}")
         return
-    ft = ".tsv.gz" if (len(db) > 1e6 or force_compress) else ".tsv"
-    db.to_csv(isdir.get_output_base() + name + ft, index=False, sep="\t")
+    _write(isdir, name, db, force_compress)
+
+
+def _genome_info(db: Optional[pd.DataFrame], mm_level: bool):
+    """genome_info from genome_level_info (instrain_tpu/store/generate.py:
+    166-180)."""
+    db = reorder_columns(db, COLUMN_ORDERS["genome_info"])
+    if db is None:
+        return None
+    read_cols = [c for c in db.columns if c.startswith("reads_")]
+    keep = [c for c in read_cols if c in
+            ["reads_unfiltered_reads", "reads_unfiltered_pairs",
+             "reads_mean_PID"]]
+    for c in set(read_cols) - set(keep):
+        del db[c]
+    if not mm_level and "mm" in db.columns:
+        db = (db.sort_values("mm")
+                .drop_duplicates(subset=["genome"], keep="last")
+                .sort_values("genome"))
+        del db["mm"]
+    return db
+
+
+def _generate_pooled_data(isdir: ProfileDir, force_compress: bool):
+    """pooled_SNV_data and its keys table (reference:
+    SNVprofile.py:377-421)."""
+    DSTdb = isdir.get("DSTdb")
+    if DSTdb is None:
+        return
+    sa2k = {s: i for i, s in enumerate(set(DSTdb.index.get_level_values(0)))}
+    sc2k = {s: i for i, s in enumerate(set(DSTdb["scaffold"]))}
+    db = DSTdb.copy()
+    db["sample"] = [sa2k[s] for s in DSTdb.index.get_level_values(0)]
+    db["scaffold"] = db["scaffold"].map(sc2k).astype(int)
+    db["position"] = DSTdb.index.get_level_values(1).astype(int)
+    db = db.reset_index(drop=True)
+    db = db[["sample", "scaffold", "position", "A", "C", "T", "G"]]
+
+    table = defaultdict(list)
+    k2sa = {v: k for k, v in sa2k.items()}
+    k2sc = {v: k for k, v in sc2k.items()}
+    for i in sorted(set(k2sa) | set(k2sc)):
+        table["key"].append(i)
+        table["sample"].append(k2sa.get(i, np.nan))
+        table["scaffold"].append(k2sc.get(i, np.nan))
+    _write(isdir, "pooled_SNV_data_keys", pd.DataFrame(table),
+           force_compress)
+    _write(isdir, "pooled_SNV_data", db, force_compress)

@@ -7,13 +7,17 @@ Layout: <loc>/output, raw_data, log, figures; raw_data/attributes.tsv maps
 attribute name -> (value-or-file, type, description). Typed payloads:
 value, dictionary (json), list (txt), numpy (npz), pandas (csv.gz),
 pickle, special (hd5: one dataset per "scaffold::mm" holding
-[values, index]).
+[values, index]; for compare's scaff2pair2mm2cov, one dataset per
+"scaffold::pair::mm" holding the sorted positions).
 
 h5py is imported only to write or read a 'special' attribute. Where it is
-not installed, a special attribute is written as a pickle of the same
-scaffold -> mm -> Series mapping (and a warning is logged); the
-attribute keeps its 'special' type, and both packages' readers load
-either file.
+not installed, a special attribute is written as a pickle of the mapping
+it was given (and a warning is logged); the attribute keeps its 'special'
+type, and this package's reader loads either file (the JAX package's
+reads the pickled scaffold -> mm -> Series attributes too).
+scaff2pair2mm2cov is given and pickled as packed masks (uint64 words, 64
+positions each, kernels/compare.py) and read back as sets of positions
+from either file.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import pandas as pd
 from .. import __capability_version__, __version__
 
 SPECIAL_SERIES = {"covT", "snpsCounted", "clonT", "clonTR"}
+# compare's scaffold -> "name1-vs-name2" -> mm -> positions attribute
+SPECIAL_PAIRS = {"scaff2pair2mm2cov"}
 
 # hd5 dataset compression for 'special' attributes (the JAX package's
 # default; INSTRAIN_H5_COMP=gzip gives the reference's own choice)
@@ -44,6 +50,12 @@ def _h5py():
     except ImportError:
         return None
     return h5py
+
+
+def _positions(words: np.ndarray) -> np.ndarray:
+    """The set bits' positions of packed mask words, ascending."""
+    return np.flatnonzero(np.unpackbits(
+        np.ascontiguousarray(words).view(np.uint8), bitorder="little"))
 
 
 def _special_pack(series: pd.Series) -> np.ndarray:
@@ -98,8 +110,11 @@ class ProfileDir:
                 stored = self._fileloc(name) + ".npz"
                 np.savez_compressed(stored, value)
             elif typ == "pandas":
+                # gzip level 1: the same text as the reference's level 9,
+                # written faster
                 stored = self._fileloc(name) + ".csv.gz"
-                value.to_csv(stored)
+                value.to_csv(stored, compression={"method": "gzip",
+                                                  "compresslevel": 1})
             elif typ == "pickle":
                 stored = self._fileloc(name) + ".pickle"
                 with open(stored, "wb") as f:
@@ -143,7 +158,7 @@ class ProfileDir:
             with open(filename, "rb") as f:
                 return pickle.load(f)
         if typ == "special":
-            return self._load_special(filename, **kwargs)
+            return self._load_special(filename, name, **kwargs)
         raise ValueError(f"unknown attribute type {typ}")
 
     def get_location(self, name: str) -> str:
@@ -160,8 +175,8 @@ class ProfileDir:
 
     def _store_special(self, name: str, obj) -> str:
         h5py = _h5py()
-        if name not in SPECIAL_SERIES or h5py is None:
-            if name in SPECIAL_SERIES:
+        if name not in SPECIAL_SERIES | SPECIAL_PAIRS or h5py is None:
+            if name in SPECIAL_SERIES | SPECIAL_PAIRS:
                 logging.warning(f"h5py is not installed: storing {name} "
                                 f"as a pickle instead of hd5")
             fileloc = self._fileloc(name) + ".pickle"
@@ -170,8 +185,17 @@ class ProfileDir:
             return fileloc
         fileloc = self._fileloc(name) + ".hd5"
         with h5py.File(fileloc, "w") as f:
-            for scaff, mm2series in obj.items():
-                for mm, series in mm2series.items():
+            for scaff, inner in obj.items():
+                if name in SPECIAL_PAIRS:
+                    # instrain_tpu/store/profile_dir.py:241-249
+                    for pair, mm2 in inner.items():
+                        for mm, words in mm2.items():
+                            f.create_dataset(
+                                f"{scaff}::{pair}::{mm}",
+                                data=_positions(words).astype("float64"),
+                                compression=_H5_COMP)
+                    continue
+                for mm, series in inner.items():
                     data = _special_pack(series)
                     # small datasets: contiguous beats chunk+filter overhead
                     comp = _H5_COMP if data.size >= 8192 else None
@@ -179,23 +203,57 @@ class ProfileDir:
                                      compression=comp, track_times=False)
         return fileloc
 
-    def _load_special(self, location: str, scaffolds=()):
+    def _load_special(self, location: str, name: str, scaffolds=()):
+        """The attribute's mapping; with `scaffolds`, only those
+        scaffolds'. Pair-keyed attributes come back as sets of positions,
+        from either file kind."""
+        scaffolds = set(scaffolds)
         if location.endswith(".pickle"):
             with open(location, "rb") as f:
-                return pickle.load(f)
+                obj = pickle.load(f)
+            if scaffolds:
+                obj = {s: v for s, v in obj.items() if s in scaffolds}
+            if name in SPECIAL_PAIRS:
+                obj = {s: {p: {int(mm): set(_positions(w))
+                               for mm, w in mm2.items()}
+                           for p, mm2 in p2.items()}
+                       for s, p2 in obj.items()}
+            return obj
         h5py = _h5py()
         if h5py is None:
             raise ImportError(f"reading {location} needs h5py")
-        scaff2mm = {}
+        out = {}
         with h5py.File(location, "r") as f:
             for key in f.keys():
-                scaff, mm = key.split("::")
-                if scaffolds and scaff not in scaffolds:
+                parts = key.split("::")
+                if scaffolds and parts[0] not in scaffolds:
                     continue
+                if name in SPECIAL_PAIRS:
+                    scaff, pair, mm = parts
+                    out.setdefault(scaff, {}).setdefault(pair, {})[
+                        int(mm)] = set(np.array(f[key]).astype(int))
+                    continue
+                scaff, mm = parts
                 dset = list(f[key])
-                scaff2mm.setdefault(scaff, {})[int(mm)] = pd.Series(
+                out.setdefault(scaff, {})[int(mm)] = pd.Series(
                     data=dset[0], index=np.array(dset[1]).astype(int))
-        return scaff2mm
+        return out
+
+    def covt_scaffolds(self) -> set:
+        """Scaffolds present in covT without loading its series
+        (reference: _get_covt_keys, SNVprofile.py:636-648), from an hd5
+        or a pickled covT."""
+        adb = self._get_attributes()
+        filename = os.path.join(self.get_location("raw_data"),
+                                os.path.basename(adb.loc["covT", "value"]))
+        if filename.endswith(".pickle"):
+            with open(filename, "rb") as f:
+                return set(pickle.load(f))
+        h5py = _h5py()
+        if h5py is None:
+            raise ImportError(f"reading {filename} needs h5py")
+        with h5py.File(filename, "r") as f:
+            return {key.split("::")[0] for key in f.keys()}
 
     # ---------- internals ----------
 

@@ -1,20 +1,29 @@
 """
-Synthetic mapping generator: S random scaffolds of L bp with planted
-strain SNVs (~1 per kb on ~30% of the reads covering them) and proper
-read pairs at ~COV coverage, written as a FASTA and a BGZF BAM.
+Synthetic mapping generators.
 
-Makes the same random draws in the same order as the JAX package's
-benchmark generator (bench_batch.synth), so for equal seed and sizes the
-BAM is byte-identical to it (asserted in tests/test_torch_io.py). The
-records are built with numpy in blocks of reads; it writes no .bai
-index.
+synth: S random scaffolds of L bp with planted strain SNVs (~1 per kb on
+~30% of the reads covering them) and proper read pairs at ~COV coverage,
+written as a FASTA and a BGZF BAM. It makes the same random draws in the
+same order as the JAX package's benchmark generator (bench_batch.synth),
+so for equal seed and sizes the BAM is byte-identical to it (asserted in
+tests/test_torch_io.py).
+
+synth_samples: the input of `compare` — one shared FASTA, one BAM per
+sample mapped to it, and a scaffold-to-genome file; each genome has two
+strain haplotypes, and each sample carries one of them at its own
+coverage.
+
+The records are built with numpy in blocks of reads; no .bai index is
+written.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import struct
-from typing import Tuple
+from concurrent.futures import ProcessPoolExecutor
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,9 +61,77 @@ def synth(workdir: str, S: int = 128, L: int = 40_000, COV: int = 30,
     return fasta, bam, S * n_pairs
 
 
+def synth_samples(workdir: str, n_samples: int, S: int, L: int,
+                  covs: Sequence[float], seed: int = 7, n_genomes: int = 2
+                  ) -> Tuple[str, List[str], str]:
+    """Write <workdir>/samples.fasta (S random scaffolds of L bp), one
+    sample_<i>.bam per sample, and samples.stb, which puts consecutive
+    runs of S / n_genomes scaffolds into genome_0, genome_1, ... Each
+    genome has two strain haplotypes, each the reference with its own
+    SNVs (~1 per kb, at positions of its own). Each sample draws, per
+    genome, which strain it carries (both strains occur in every genome
+    from two samples on) and maps reads from it at coverage covs[i], with
+    synth's within-sample variants on top; NM counts the mismatches
+    against the shared reference. Sample i draws its reads from a
+    generator of its own (seed, i), so the samples are written in
+    parallel processes. Returns (fasta, bams, stb)."""
+    rng = np.random.default_rng(seed)
+    assert S % n_genomes == 0 and len(covs) == n_samples
+    per = S // n_genomes
+    fasta = os.path.join(workdir, "samples.fasta")
+    stb = os.path.join(workdir, "samples.stb")
+    refs = [BASES[rng.integers(0, 4, L)] for _ in range(S)]
+    with open(fasta, "w") as f:
+        for s, seq in enumerate(refs):
+            f.write(f">scaf_{s}\n{seq.tobytes().decode()}\n")
+    with open(stb, "w") as f:
+        for s in range(S):
+            f.write(f"scaf_{s}\tgenome_{s // per}\n")
+    # two haplotypes per scaffold, on disjoint SNV positions
+    haps = []
+    for ref in refs:
+        pos = rng.choice(L, 2 * (L // 1000), replace=False)
+        pair = []
+        for k in range(2):
+            p = pos[k::2]
+            h = ref.copy()
+            h[p] = BASES[(np.searchsorted(BASES, ref[p]) +
+                          rng.integers(1, 4, len(p))) % 4]
+            pair.append(h)
+        haps.append(pair)
+    strain = np.stack([rng.permutation(np.arange(n_samples) % 2)
+                       for _ in range(n_genomes)])       # [genome, sample]
+    bams = [os.path.join(workdir, f"sample_{i}.bam")
+            for i in range(n_samples)]
+    jobs = [(bams[i], (seed, i), [haps[s][strain[s // per, i]]
+                                  for s in range(S)], refs, covs[i])
+            for i in range(n_samples)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(min(n_samples, os.cpu_count() or 1),
+                             mp_context=ctx) as pool:
+        list(pool.map(_write_sample, *zip(*jobs)))
+    return fasta, bams, stb
+
+
+def _write_sample(bam: str, seed, haps: List[np.ndarray],
+                  refs: List[np.ndarray], cov: float) -> None:
+    """One synth_samples BAM: reads from each scaffold's haplotype."""
+    rng = np.random.default_rng(seed)
+    L = len(refs[0])
+    n_pairs = int(L * cov / (2 * READ))
+    parts = [bam_header([(f"scaf_{s}", L) for s in range(len(refs))])]
+    for s, (hap, ref) in enumerate(zip(haps, refs)):
+        parts.append(_scaffold_records(rng, s, hap, L, n_pairs,
+                                       s * n_pairs, truth=ref))
+    write_bgzf(bam, b"".join(parts))
+
+
 def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,
-                      qid0: int) -> bytes:
-    """Coordinate-sorted BAM records of one scaffold's read pairs."""
+                      qid0: int, truth: Optional[np.ndarray] = None
+                      ) -> bytes:
+    """Coordinate-sorted BAM records of one scaffold's read pairs, read
+    from `ref`; NM counts mismatches against `truth` (the mapping
+    reference) where it is given, else the planted SNVs a read carries."""
     snv_pos = rng.choice(L, L // 1000, replace=False)
     snv_alt = BASES[(np.searchsorted(BASES, ref[snv_pos]) +
                      rng.integers(1, 4, len(snv_pos))) % 4]
@@ -76,6 +153,10 @@ def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,
 
     alt_ref = ref.copy()
     alt_ref[snv_pos] = snv_alt
+    if truth is not None:
+        win = pos[:, None] + np.arange(READ)
+        nm = (np.where(mutated[:, None], alt_ref[win], ref[win]) !=
+              truth[win]).sum(axis=1)
     n = len(pos)
     first = np.arange(n) % 2 == 0
     mate = np.empty_like(pos)

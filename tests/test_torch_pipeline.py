@@ -194,7 +194,7 @@ def test_special_stored_as_pickle_without_h5py(tmp_path, monkeypatch):
     ["--engine", "hybrid", "--mesh_devices", "2"] + FLAGS,
     ["--engine", "batch", "--mesh_devices", "2"] + FLAGS,
     ["--engine", "pallas"] + FLAGS, ["-g", "genes.fna"] + FLAGS,
-    ["--skip_plot_generation"], ["--skip_genome_wide"],
+    ["-g", "genes.fna", "--skip_plot_generation"], ["--skip_genome_wide"],
     ["--mesh_devices", "2"] + FLAGS, ["--distributed"] + FLAGS])
 def test_unported_options_raise(tmp_path, synth_data, extra):
     fasta, bam, _ = synth_data
