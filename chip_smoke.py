@@ -24,9 +24,13 @@ Phases (each prints its own lines; the first failure exits non-zero):
      each) against their plain versions at segments of unequal length, a
      single position and one past 1 Mb among them, M in {1, 8, 33}, and
      the engine's chunk path against the JAX package's batch golden file;
-     and the linkage kernel (K6) against its plain version and the JAX
-     package's golden file, every column bit for bit. Then the overlap
-     kernel of compare (K7) against its plain version and the host
+     select_rows and masked_median at edge shapes, bit for bit (M = 33
+     over 40 kb segments, M = 80, one position, masked_median's short-row
+     bound of 49,152 positions and one past; all-equal values, rows of
+     0-3 counted values among +inf, values on the select's digit
+     boundaries); and the linkage kernel (K6) against its plain version
+     and the JAX package's golden file, every column bit for bit. Then the
+     overlap kernel of compare (K7) against its plain version and the host
      popcount, exact, at five (samples, mm levels, positions) shapes up to
      (16, 4, 2^23) and (64, 3, 100000), and timed beside the bf16 product
      of the unpacked bits; the host popcount against the kernel with its
@@ -59,9 +63,18 @@ Phases (each prints its own lines; the first failure exits non-zero):
      just after: once per scaffold), with the host engine, on --device cpu
      and with --engine auto (no launch below its bound), every TSV byte
      for byte, a comparison row per (scaffold, pair, mm level) and no
-     scaffold failure.
+     scaffold failure. The batch engine's profiled run also reports, per
+     chunk, its H2D bytes and time beside its kernels' (from the trace);
+  5. timing: select_rows and masked_median at the inputs compact_from_full
+     got in the three auto runs (the metagenome's largest chunk, the
+     isolate, the deep input), at a 52 x 40 kb chunk and at one segment
+     of M = 8, L = 2^20: the wrapper's time and its launches' device time
+     alone, the plain version's, one PyTorch call's (torch.nonzero with
+     the gathers; torch.sort), each after an L2 flush, and the bound.
 The last three lines are the card's name and power limit, the kernels'
 JSON record and the device record.
+The kernels' record takes select_rows and masked_median at the
+metagenome's chunk, the other kernels at the shapes their phases time.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
 """
 
@@ -75,6 +88,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
 FLAGS = ["--skip_genome_wide", "--skip_plot_generation"]
+# the main paths' inputs: (name, scaffolds, length, coverage), synth seed 7
+MAIN_CASES = [("metagenome", 128, 40_000, 30), ("isolate", 1, 2_500_000, 60),
+              ("deep", 1, 250_000, 3000)]
 
 
 class SmokeFailure(RuntimeError):
@@ -247,6 +263,40 @@ def bound(n_bytes, ops=0.0, rate=1.0):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+_FLUSH = []
+
+
+def flush_l2(torch):
+    """Write 128 MB, more than the card's 50 MB L2, so that the next
+    launch finds its inputs in device memory."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(1 << 25, dtype=torch.int32, device="cuda"))
+    _FLUSH[0].fill_(1)
+
+
+def cold_ms(torch, fn, n, busy=False):
+    """Mean ms of fn over n calls, each after an L2 flush, by CUDA events
+    around each call alone: host waits inside fn included; or, with
+    `busy`, the device time of the launches fn enqueues alone, the card
+    kept busy (torch.cuda._sleep) while the host enqueues them (fn must
+    not wait for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(n):
+        flush_l2(torch)
+        if busy:
+            torch.cuda._sleep(1_000_000)    # about 0.5 ms at 1980 MHz
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / n
 
 
 def phase_kernels(torch, card):
@@ -459,26 +509,14 @@ def phase_compact(torch, card):
         log("compact", f"golden {tag}: rows, aggregates, linkage and masks "
                        f"equal the JAX package bit for bit")
 
-    times = {}
+    # select_rows and masked_median are timed in compact_timing
     for M, L in ((8, 40000), (8, 1 << 20)):
         full, seg = full_for(M, L, 7)
-        agg, cf, rf = CC.mm_aggregates(full, seg)
-        med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"],
-                    seg)
-        times[(M, L)] = t = {
-            "select_rows": timed_pair(
-                torch, lambda: CC.select_rows(full, seg),
-                lambda: S.select_rows_seg(full, seg), 20, 5),
-            "mm_aggregates": timed_pair(
-                torch, lambda: CC.mm_aggregates(full, seg),
-                lambda: S.mm_aggregates_seg(full, seg), 20, 5),
-            "masked_median": timed_pair(
-                torch, lambda: CC.masked_median(*med_args),
-                lambda: S.masked_medians_seg(*med_args), 20, 5)}
-        log("compact", f"time M={M} L={L} on {card}: " + "; ".join(
-            f"{k} kernel {v[0]:.4f} ms vs plain {v[1]:.4f} ms"
-            for k, v in t.items()))
-    return errs, times[(8, 1 << 20)]
+        t = timed_pair(torch, lambda: CC.mm_aggregates(full, seg),
+                       lambda: S.mm_aggregates_seg(full, seg), 20, 5)
+        log("compact", f"time M={M} L={L} on {card}: mm_aggregates kernel "
+                       f"{t[0]:.4f} ms vs plain {t[1]:.4f} ms")
+    return errs
 
 
 def segment_inputs(M, lengths, seed):
@@ -617,11 +655,11 @@ def phase_batch(torch, card):
                      f"bit")
 
     # times at the metagenome's chunk shape: as many 40 kb scaffolds at
-    # M = 8 as one chunk holds
+    # M = 8 as one chunk holds (select_rows and masked_median: in
+    # compact_timing)
     S_chunk = PC.CHUNK_CELLS // (8 * 40000)
     c, r, full, seg, Mp = chunk(8, [40000] * S_chunk, 7)
     agg, cf, rf = CC.mm_aggregates(full, seg)
-    med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"])
     args = (full["cum"], full["total"], full["clonR_set"], seg, 50, Mp)
     times = {
         "site_stats": timed_pair(
@@ -629,39 +667,326 @@ def phase_batch(torch, card):
             lambda: C.site_stats_core_plain(c, r, nl, fl, 5, 50), 20, 1),
         "clonR": timed_pair(torch, lambda: C.clonR(*args),
                             lambda: C.clonR_plain(*args), 20, 1),
-        "select_rows": timed_pair(torch, lambda: CC.select_rows(full, seg),
-                                  lambda: S.select_rows_seg(full, seg), 20,
-                                  1),
         "mm_aggregates": timed_pair(
             torch, lambda: CC.mm_aggregates(full, seg),
-            lambda: S.mm_aggregates_seg(full, seg), 20, 1),
-        "masked_median": timed_pair(
-            torch, lambda: CC.masked_median(*med_args, seg),
-            lambda: S.masked_medians_seg(*med_args, seg), 20, 1)}
+            lambda: S.mm_aggregates_seg(full, seg), 20, 1)}
     log("batch", f"time, one chunk of {S_chunk} x 40 kb at M=8 on {card}: "
                  + "; ".join(f"{k} kernel {v[0]:.4f} ms vs plain "
                              f"{v[1]:.4f} ms" for k, v in times.items()))
     # bounds at the same shape: bytes in and out; clonR's Threefry draws
-    # (50 per drawn cell); select_rows reads row and any_snp whole and the
-    # selected cells' values (as many bytes as it writes)
+    # (50 per drawn cell)
     rates = card_rates(torch)
     core = C.site_stats_core(c, r, nl, fl, 5, 50)
-    rows, link = CC.select_rows(full, seg)
-    med = CC.masked_median(*med_args, seg)
     keys_agg = ("total", "clon", "clonR", "row", "morphia", "cls", "present")
     drawn = int(full["clonR_set"].sum())
     bounds = {
         "site_stats": bound(nbytes(c, r, nl, fl, core)),
         "clonR": bound(nbytes(args[:3], full["clonR"]),
                        drawn * 50 * THREEFRY_OPS, rates["int32"]),
-        "select_rows": bound(nbytes(full["row"], full["any_snp"]) +
-                             2 * nbytes(rows, link)),
         "mm_aggregates": bound(nbytes([full[k] for k in keys_agg],
-                                      agg, cf, rf)),
-        "masked_median": bound(nbytes(med_args, med))}
+                                      agg, cf, rf))}
     log("batch", "bounds at that shape: " + "; ".join(
         f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items()))
     return errs, times, bounds
+
+
+# ------------------------------------------------ select_rows, masked_median
+
+# the site_stats outputs the compaction kernels read
+COMPACT_KEYS = ("row", "any_snp", "cum", "total", "con", "var", "morphia",
+                "cls", "cryptic", "present", "clon", "clonR")
+
+
+class CompactCapture:
+    """While open, clones the inputs of cuda_compact.compact_from_full:
+    for each run (its name set in .run) those of its largest chunk, as
+    .inputs[name] = (full, seg)."""
+
+    def __init__(self):
+        from instrain_tpu_torch.kernels import cuda_compact
+        self.mod, self.run = cuda_compact, None
+        self.inputs, self.cells = {}, {}
+
+    def __enter__(self):
+        self.saved = self.mod.compact_from_full
+
+        def keep(full, seg):
+            cells = full["total"].numel()
+            if cells > self.cells.get(self.run, 0):
+                self.cells[self.run] = cells
+                self.inputs[self.run] = (
+                    {k: full[k].clone() for k in COMPACT_KEYS}, seg)
+            return self.saved(full, seg)
+
+        self.mod.compact_from_full = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compact_from_full = self.saved
+        return False
+
+
+def site_stats_chunk(torch, M, lengths, seed):
+    """(full, seg): the site stats, on the card, of a chunk of scaffolds of
+    `lengths` at M mm levels laid end to end."""
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.kernels import sitestats as S
+    from instrain_tpu_torch.kernels.nullmodel import \
+        analytic_null_thresholds
+    from instrain_tpu_torch.profile.compact import _fold_keys
+    dev = torch.device("cuda")
+    nl = torch.as_tensor(analytic_null_thresholds(max_coverage=10000),
+                         device=dev)
+    fl = torch.as_tensor(S.freq_min_count_lut(0.05, max_coverage=10000),
+                         device=dev)
+    counts, ref = segment_inputs(M, lengths, seed)
+    seg = S.Segments(lengths, _fold_keys(42, range(seed, seed + len(
+        lengths))), dev)
+    full = C.site_stats(torch.from_numpy(counts).to(dev),
+                        torch.from_numpy(ref).to(dev), nl, fl, seg,
+                        m_stride=max(-(-M // 8) * 8, 8))
+    return {k: full[k] for k in COMPACT_KEYS}, seg
+
+
+def check_select_median(torch, full, seg, what):
+    """select_rows and masked_median (after mm_aggregates) bit for bit
+    against their plain versions. Returns (select err, median err)."""
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import sitestats as S
+    rows, link = CC.select_rows(full, seg)
+    agg, cf, rf = CC.mm_aggregates(full, seg)
+    med = CC.masked_median(full["total"], cf, rf, agg["counted"],
+                           agg["rarefied"], seg)
+    torch.cuda.synchronize()
+    prows, plink = S.select_rows_seg(full, seg)
+    pmed = S.masked_medians_seg(full["total"], cf, rf, agg["counted"],
+                                agg["rarefied"], seg)
+    e1 = compare_exact({"rows": prows, "linkage": plink},
+                       {"rows": rows, "linkage": link},
+                       f"select_rows {what}")
+    e2 = compare_exact(pmed, med, f"masked_median {what}")
+    return e1, e2, rows["n_rows"], link["n_pos"]
+
+
+def median_edge_inputs(torch, kind, M, lengths, seed):
+    """(total, clon_f, clonR_f, counted, rarefied, seg) on the card for
+    masked_median's edge cases:
+      equal   every coverage 30 and every clonality 1.0;
+      sparse  counted / rarefied of 0, 1, 2 or 3 per row, the counted
+              values at random positions and +inf elsewhere;
+      digits  coverages and clonalities at the boundaries of the select's
+              digits (2^k - 1, 2^k, 2^k + 1, neighbouring f32 patterns,
+              +inf), with counts 0, 1, 2, n - 1, n or at random."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import sitestats as S
+    from instrain_tpu_torch.profile.compact import _fold_keys
+    rng = np.random.default_rng(seed)
+    Lt, n_seg = sum(lengths), len(lengths)
+    dev = torch.device("cuda")
+    if kind == "equal":
+        total = np.full((M, Lt), 30, np.int64)
+        cf = np.ones((M, Lt), np.float32)
+        rf = cf.copy()
+        counted = np.tile(np.asarray(lengths, np.int64)[:, None], (1, M))
+        rarefied = counted.copy()
+    elif kind == "sparse":
+        total = rng.integers(0, 60, (M, Lt)).astype(np.int64)
+        vals = np.float32([0.25, 0.5, 0.75, 1.0])
+        cf = np.full((M, Lt), np.inf, np.float32)
+        rf = cf.copy()
+        counted = np.zeros((n_seg, M), np.int64)
+        rarefied = np.zeros((n_seg, M), np.int64)
+        a = 0
+        for s, n in enumerate(lengths):
+            for m in range(M):
+                for arr, cnt, c in ((cf, counted, (s + m) % 4),
+                                    (rf, rarefied, (s + 2 * m + 1) % 4)):
+                    c = min(c, n)
+                    at = a + rng.choice(n, c, replace=False)
+                    arr[m, at] = rng.choice(vals, c)
+                    cnt[s, m] = c
+            a += n
+    else:
+        cov = np.array([0, 1, 2, 3, 2047, 2048, 2049, 65535, 65536, 65537,
+                        (1 << 24) - 1, 1 << 24, (1 << 24) + 1, (1 << 24) + 3,
+                        1 << 31], np.int64)
+        bits = np.array([0x3E000000, 0x3EFFFFFF, 0x3F000000, 0x3F000001,
+                         0x3F7FFBFF, 0x3F7FFC00, 0x3F7FFFFF, 0x3F800000,
+                         0x3F800001, 0x3F800400, 0x7F800000], np.uint32)
+        total = rng.choice(cov, (M, Lt))
+        cf = rng.choice(bits, (M, Lt)).view(np.float32)
+        rf = rng.choice(bits[:4], (M, Lt)).view(np.float32)
+        picks = []
+        for n in lengths:
+            picks.append([min(c, n) for c in (0, 1, 2, max(n - 1, 0), n)] +
+                         list(rng.integers(0, n + 1, M)))
+        counted = np.array([[p[m % len(p)] for m in range(M)]
+                            for p in picks], np.int64)
+        rarefied = np.array([[p[(m + 3) % len(p)] for m in range(M)]
+                             for p in picks], np.int64)
+    seg = S.Segments(lengths, _fold_keys(3, range(n_seg)), dev)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (total, cf, rf, counted, rarefied)) + (seg,)
+
+
+def phase_compact_edges(torch, short_keys):
+    """select_rows and masked_median bit for bit against their plain
+    versions at edge shapes: M = 33 over 40 kb segments, M = 80, a
+    segment of one position alone and in a chunk, segments of
+    `short_keys` (masked_median's short-row bound) and one past; and
+    masked_median over all-equal values, over rows counting 0-3 values
+    among +inf, and over values on its digits' boundaries."""
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import sitestats as S
+    errs = {"select_rows": 0.0, "masked_median": 0.0}
+    for M, lengths in ((33, [40000] * 4), (1, [1]), (80, [300, 1, 2000]),
+                       (3, [1, short_keys, short_keys + 1, 2, 40000]),
+                       (2, [short_keys + 1]), (5, [short_keys])):
+        full, seg = site_stats_chunk(torch, M, lengths, M + len(lengths))
+        e1, e2, n_rows, n_pos = check_select_median(
+            torch, full, seg, f"M={M} L={lengths}")
+        errs["select_rows"] = max(errs["select_rows"], e1)
+        errs["masked_median"] = max(errs["masked_median"], e2)
+        log("edges", f"M={M} segments {lengths}: select_rows and "
+                     f"masked_median == plain bit for bit ({n_rows} SNP "
+                     f"rows, {n_pos} SNV positions)")
+        del full
+    for kind in ("equal", "sparse", "digits"):
+        for M, lengths in ((5, [1, 2, 3, 1000, short_keys]),
+                           (3, [short_keys + 1, 7]), (2, [200_000])):
+            args = median_edge_inputs(torch, kind, M, lengths, M)
+            got = CC.masked_median(*args)
+            torch.cuda.synchronize()
+            errs["masked_median"] = max(errs["masked_median"], compare_exact(
+                S.masked_medians_seg(*args), got,
+                f"masked_median {kind} M={M} L={lengths}"))
+        log("edges", f"masked_median, {kind} values, segments of 1 to "
+                     f"200,000 positions: == plain bit for bit")
+    return errs
+
+
+def library_select(torch, full):
+    """select_rows by PyTorch's own calls, on the chunk axis (positions
+    not counted per segment): torch.nonzero of row.T, the 12 record
+    gathers and the linkage gathers."""
+    row, cum = full["row"], full["cum"]
+
+    def run():
+        idx = torch.nonzero(row.T)
+        p, m = idx[:, 0], idx[:, 1]
+        rec = [p, m] + [cum[m, b, p] for b in range(4)] + [
+            full[k][m, p] for k in ("total", "con", "var", "morphia",
+                                    "cls")] + [full["cryptic"][p]]
+        pidx = torch.nonzero(full["any_snp"]).flatten()
+        return rec, cum[:, :, pidx], full["present"][:, pidx]
+    return run
+
+
+def library_median(torch, total, clon_f, clonR_f, seg):
+    """masked_median's yardstick: one torch.sort over the rows of the three
+    value sets, each row one (set, mm level, segment); the gathers of the
+    order statistics are not counted. None when the segments' lengths
+    differ (no one call sorts them)."""
+    import numpy as np
+    lengths = np.diff(seg.off)
+    if (lengths != lengths[0]).any():
+        return None
+    M = total.shape[0]
+    keys = torch.stack([total.to(torch.float32), clon_f, clonR_f]).reshape(
+        3 * M * seg.S, int(lengths[0]))
+    return lambda: torch.sort(keys, dim=1)
+
+
+def select_rows_bound(full, rows, link):
+    """select_rows' bound from the bytes it must move: row and any_snp
+    read whole; the values it gathers read once (per record its four
+    cumulative counts, total and four codes; cryptic once per position
+    that has a record; per SNV position its [M, 4] counts and [M]
+    present); every output written once. Position, mm level and the
+    linkage positions come from the tile and are not read."""
+    M = full["total"].shape[0]
+    cum, total = full["cum"].element_size(), full["total"].element_size()
+    per_record, per_snv = 4 * cum + total + 4, M * (4 * cum + 1)
+    record_positions = int(full["row"].any(0).sum())
+    return bound(nbytes(full["row"], full["any_snp"], rows, link) +
+                 rows["n_rows"] * per_record + record_positions +
+                 link["n_pos"] * per_snv)
+
+
+def synthetic_shapes(torch):
+    """The timing shapes kept from earlier runs: one batch chunk of 40 kb
+    scaffolds at M = 8 (as many as CHUNK_CELLS holds) and one segment of
+    M = 8, L = 2^20."""
+    from instrain_tpu_torch.profile.compact import CHUNK_CELLS
+    n = CHUNK_CELLS // (8 * 40000)
+    return [(f"synthetic chunk {n} x 40 kb", *site_stats_chunk(
+                torch, 8, [40000] * n, 7)),
+            ("one segment 2^20", *site_stats_chunk(torch, 8, [1 << 20], 7))]
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def compact_timing(torch, card, shapes):
+    """select_rows and masked_median at each (name, full, seg): the
+    wrapper's time, the device time of its launches alone (cold_ms busy;
+    select_rows' two launches each, its host read between them left out),
+    the plain version's, the library yardstick's, every one after an L2
+    flush and taken in turns (plain, library, kernel, kernel, library,
+    plain), and the bound."""
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import sitestats as S
+    out = {}
+    for name, full, seg in shapes:
+        M, L = full["total"].shape
+        agg, cf, rf = CC.mm_aggregates(full, seg)
+        med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"],
+                    seg)
+        rows, link = CC.select_rows(full, seg)
+        med = CC.masked_median(*med_args)
+        res = out[name] = {}
+        job = CC._rows_count(full, seg)
+        torch.cuda.synchronize()
+        count_ms = cold_ms(torch, lambda: CC._rows_count(full, seg), 10,
+                           busy=True)
+        gather_ms = cold_ms(torch, lambda: CC._rows_gather(
+            job, rows["n_rows"], link["n_pos"]), 10, busy=True)
+        for kname, kern, plain, lib, dev, bnd in (
+                ("select_rows", lambda: CC.select_rows(full, seg),
+                 lambda: S.select_rows_seg(full, seg),
+                 library_select(torch, full), count_ms + gather_ms,
+                 select_rows_bound(full, rows, link)),
+                ("masked_median", lambda: CC.masked_median(*med_args),
+                 lambda: S.masked_medians_seg(*med_args),
+                 library_median(torch, full["total"], cf, rf, seg),
+                 cold_ms(torch, lambda: CC.masked_median(*med_args), 10,
+                         busy=True),
+                 bound(nbytes(med_args[:5], med)))):
+            n = 10
+            p1 = cold_ms(torch, plain, 2)
+            l1 = cold_ms(torch, lib, n) if lib else None
+            k1 = cold_ms(torch, kern, n)
+            k2 = cold_ms(torch, kern, n)
+            l2 = cold_ms(torch, lib, n) if lib else None
+            p2 = cold_ms(torch, plain, 2)
+            res[kname] = dict(
+                ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=(l1 + l2) / 2 if lib else None,
+                device_ms=dev, bound_ms=bnd[0], bound_by=bnd[1])
+        log("timing", f"{name} (M={M}, {seg.S} segment(s), {L} positions) "
+                      f"on {card}, cold L2: " + "; ".join(
+                          f"{k} wrapper {v['ms']:.4f} ms, device "
+                          f"{v['device_ms']:.4f} ms, plain "
+                          f"{v['plain_ms']:.4f} ms, library "
+                          f"{ms_text(v['library_ms'])}, bound "
+                          f"{v['bound_ms']:.4f} ms "
+                          f"({v['bound_by']})" for k, v in res.items()) +
+                      f" ({rows['n_rows']} SNP rows, {link['n_pos']} SNV "
+                      f"positions; select_rows' device time: count and scan "
+                      f"{count_ms:.4f} ms, gather {gather_ms:.4f} ms)")
+        del agg, cf, rf, med_args, rows, link, med, job
+    return out
 
 
 def compare_nan_equal(want, got, what):
@@ -855,15 +1180,18 @@ def tsvs(out):
             for t in ("SNVs", "scaffold_info", "linkage", "mapping_info")}
 
 
-def device_copies(torch, fn):
+def device_copies(torch, fn, trace=None):
     """Run fn under torch.profiler: {"DtoH"|"HtoD": (copies, ms),
     "kernels": (launches, ms)} of device time, or None when the profiler
-    records no device activity."""
+    records no device activity. With `trace`, the chrome trace is written
+    there too."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    if trace:
+        prof.export_chrome_trace(trace)
     out = {"DtoH": [0, 0.0], "HtoD": [0, 0.0], "kernels": [0, 0.0]}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -878,6 +1206,39 @@ def device_copies(torch, fn):
             out[key][0] += e.count
             out[key][1] += us / 1000.0
     return out if out["kernels"][0] else None
+
+
+def chunk_copies(trace):
+    """The device work of a traced run, per stream in time order, cut into
+    groups that each start at a host-to-device copy after other work: a
+    chunk of the batch engine is its H2D copies and then its kernels on
+    one stream. [(H2D bytes, H2D ms, kernels, kernel ms, D2H ms)]."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    streams = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            streams.setdefault(e.get("args", {}).get("stream"), []).append(e)
+    groups = []
+    for evs in streams.values():
+        cur = None
+        for e in sorted(evs, key=lambda e: e["ts"]):
+            h2d = e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+            if h2d and (cur is None or cur[2] or cur[4]):
+                cur = [0, 0.0, 0, 0.0, 0.0]
+                groups.append(cur)
+            if cur is None:
+                continue
+            ms = e.get("dur", 0.0) / 1e3
+            if h2d:
+                cur[0] += int(e.get("args", {}).get("bytes", 0))
+                cur[1] += ms
+            elif e["cat"] == "gpu_memcpy":
+                cur[4] += ms
+            else:
+                cur[2] += 1
+                cur[3] += ms
+    return [tuple(g) for g in groups]
 
 
 def phase_end_to_end(torch):
@@ -909,8 +1270,7 @@ def phase_end_to_end(torch):
         log("e2e", f"small input (4 x 5 kb, 60x), --engine {engine}: GPU "
                    f"TSVs byte-identical to the --device cpu run")
 
-    cases = [("metagenome", 128, 40_000, 30), ("isolate", 1, 2_500_000, 60),
-             ("deep", 1, 250_000, 3000)]
+    cases = MAIN_CASES
     data = {}
     for name, S, L, cov in cases:
         d = os.path.join(WORK, name)
@@ -967,13 +1327,16 @@ def phase_end_to_end(torch):
     outs, launches = {}, dict.fromkeys(five + ("ld",), 0)
     PL.resolve_linkage_engine = record
     PL._device_ld_args = keep_ld_args
+    capture = CompactCapture()
     try:
         for name, S, _, _ in cases:
+            capture.run = name
             linkage_choice.clear()
             C.reset_launch_counts()
             CC.reset_launch_counts()
             CL.reset_launch_counts()
-            outs[name] = run(name, "auto")
+            with capture:
+                outs[name] = run(name, "auto")
             got = {**C.launch_counts(), **CC.launch_counts(),
                    **CL.launch_counts()}
             if name == "metagenome":
@@ -1007,6 +1370,10 @@ def phase_end_to_end(torch):
     finally:
         PL.resolve_linkage_engine = resolve
         PL._device_ld_args = device_ld_args
+    torch.cuda.synchronize()
+    captured = capture.inputs
+    check(sorted(captured) == sorted(c[0] for c in cases),
+          f"compact_from_full's inputs captured for {sorted(captured)}")
     check(linkage_choice and linkage_choice[-1][1] == "device",
           f"the deep input's linkage ran on the host engine "
           f"({linkage_choice[-1:]})")
@@ -1022,9 +1389,11 @@ def phase_end_to_end(torch):
     for engine in ("batch", "hybrid"):
         fasta, bam, _ = data["metagenome"]
         prof_out = os.path.join(WORK, "metagenome", f"prof_{engine}.IS")
+        trace = os.path.join(WORK, f"trace_{engine}.json")
         t0 = time.perf_counter()
         got = device_copies(torch, lambda: run_profile(
-            bam, fasta, prof_out, engine, "cuda"))
+            bam, fasta, prof_out, engine, "cuda"),
+            trace if engine == "batch" else None)
         wall = time.perf_counter() - t0
         if got is None:
             log("e2e", f"metagenome --engine {engine} under torch.profiler: "
@@ -1037,6 +1406,16 @@ def phase_end_to_end(torch):
                    f"launches {got['kernels'][1]:.3f} ms; device busy "
                    f"{got['DtoH'][1] + got['HtoD'][1] + got['kernels'][1]:.3f}"
                    f" ms")
+        if engine == "batch":
+            # the measurement that decides whether the sparse count wire
+            # (K8) is worth porting: H2D against kernel time per chunk
+            for i, (b, h_ms, n_k, k_ms, d_ms) in enumerate(
+                    chunk_copies(trace)):
+                log("e2e", f"metagenome --engine batch, stream group {i}: "
+                           f"H2D {b} bytes in {h_ms:.4f} ms "
+                           f"({b / max(h_ms, 1e-9) / 1e6:.1f} GB/s), "
+                           f"{n_k} kernels {k_ms:.4f} ms, D2H {d_ms:.4f} "
+                           f"ms")
 
     # the deep input on the CPU with the device linkage engine forced
     PL.resolve_linkage_engine = lambda engine, device, n_pairs: "device"
@@ -1080,7 +1459,7 @@ def phase_end_to_end(torch):
                "chunk by the dense engine and once per scaffold by the "
                "hybrid engine (max abs difference " + ", ".join(
                    f"{k} {v:.3g}" for k, v in diffs.items()) + ")")
-    return launches, ld_args[-1]
+    return launches, ld_args[-1], captured
 
 
 # ---------------------------------------------------------------- compare
@@ -1394,19 +1773,30 @@ def main():
 
     card = phase_environment(torch)
     phase_build()
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    short_keys = CC.MEDIAN_SHORT_KEYS
     errs, _ = phase_kernels(torch, card)
-    cerrs, _ = phase_compact(torch, card)
-    errs.update(cerrs)
+    errs.update(phase_compact(torch, card))
     berrs, times, bounds = phase_batch(torch, card)
     errs = {k: max(v, berrs.get(k, 0.0)) for k, v in errs.items()}
+    for k, v in phase_compact_edges(torch, short_keys).items():
+        errs[k] = max(errs[k], v)
     errs["ld"] = phase_linkage(torch, card)
     rates = card_rates(torch)
     k7 = phase_compare_kernel(torch, card, rates)
     phase_compare_crossover(torch, card)
-    launches, ld_args = phase_end_to_end(torch)
+    launches, ld_args, captured = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
+
+    # select_rows and masked_median at the inputs the main paths gave them,
+    # then at the synthetic shapes
+    timing = compact_timing(torch, card, [
+        (f"{n} (captured)", *captured[n])
+        for n in ("metagenome", "isolate", "deep")] + synthetic_shapes(
+            torch))
+    del captured
 
     # the ld kernel at the deep input's shapes, as its run gave them
     from instrain_tpu_torch.kernels import cuda_linkage as CL
@@ -1424,6 +1814,7 @@ def main():
                    f"{times['ld'][0]:.4f} ms vs plain {times['ld'][1]:.4f} "
                    f"ms; bound {bounds['ld'][0]:.4f} ms ({bounds['ld'][1]})")
 
+    main_shape = timing["metagenome (captured)"]
     kernels = [
         {"name": "site_stats", "route": "cuda",
          "source": "instrain_tpu_torch/csrc/site_stats.cu",
@@ -1443,8 +1834,7 @@ def main():
          "replaces": f"instrain_tpu/kernels/sitestats.py:{line}",
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, line in (("select_rows", 325), ("mm_aggregates", 346),
-                           ("masked_median", 379))
+        for name, line in (("mm_aggregates", 346),)
     ] + [
         {"name": "ld", "route": "cuda",
          "source": "instrain_tpu_torch/csrc/linkage.cu",
@@ -1452,10 +1842,21 @@ def main():
          "launches": launches["ld"], "max_abs_err": errs["ld"],
          "ms": times["ld"][0], "plain_ms": times["ld"][1]}
     ]
-    # no single PyTorch call computes K1-K6: library_ms is null for them
+    # no single PyTorch call computes K1-K3, mm_aggregates or K6:
+    # library_ms is null for them
     for k in kernels:
         k.update(bound_ms=bounds[k["name"]][0],
                  bound_by=bounds[k["name"]][1], library_ms=None)
+    # select_rows and masked_median at the metagenome's largest chunk, as
+    # its batch run gave it
+    for name, line in (("select_rows", 325), ("masked_median", 379)):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "instrain_tpu_torch/csrc/compact.cu",
+             "replaces": f"instrain_tpu/kernels/sitestats.py:{line}",
+             "launches": launches[name], "max_abs_err": errs[name],
+             **{k: main_shape[name][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     main_shape = k7[(8, 5, 40_000)]     # the compare run's 8 samples
     kernels.append(
         {"name": "overlap_counts", "route": "cuda",

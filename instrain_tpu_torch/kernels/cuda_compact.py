@@ -13,12 +13,20 @@ build.cuda_kernels_library, bound with ctypes):
   select_rows    C1: the SNP rows and the linkage profiles at SNV
                  positions, by a two-pass stream compaction sized exactly
                  (replaces _first_set_indices and the row/linkage gathers,
-                 :545-567, :629-642).
+                 :545-567, :629-642): per-tile counts with 16-byte loads,
+                 one scan, one 8-byte read of the totals, then each tile's
+                 selected cells listed in shared memory and every record
+                 column written as one contiguous run.
   mm_aggregates  C2: the per-mm integer and f64 aggregates and the
                  forward-filled clon / clonR (replaces _ffill_expand and
                  :569-627).
   masked_median  C3: the exact per-mm medians of coverage, clon and clonR
-                 by radix select (replaces _median_select, :379-423).
+                 by radix select (replaces _median_select, :379-423): a
+                 row of a segment of at most MEDIAN_SHORT_KEYS positions is
+                 read once into one block's shared memory; a longer row is
+                 split over enough blocks to fill the card and read two or
+                 three times, its state kept on the device between
+                 launches. median_plan says which rows go which way.
 
 As in cuda_sitestats.py, each wrapper takes its plain PyTorch version
 (kernels/sitestats.py) only because the tensors it was given lie on the
@@ -30,8 +38,9 @@ raises KernelError. Each counts its launches in `.launches`
 from __future__ import annotations
 
 import ctypes as ct
+import itertools
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -60,9 +69,12 @@ def _lib():
             lib.instrain_mm_aggregates.restype = I
             lib.instrain_mm_aggregates.argtypes = (
                 [P] * 7 + [I, I64] + seg + [P] * 5 + [P])
-            lib.instrain_masked_median.restype = I
-            lib.instrain_masked_median.argtypes = ([P] * 5 + [I, I64, P, I] +
-                                                   [P, P])
+            med = [P] * 5 + [I, I64, P, I]     # inputs, M, L, segments
+            lib.instrain_median_short.restype = I
+            lib.instrain_median_short.argtypes = med + [I, P, P]
+            lib.instrain_median_long.restype = I
+            lib.instrain_median_long.argtypes = med + [P, I, I64, I64] + [
+                P, P, P]
             _bound = True
     return lib
 
@@ -116,48 +128,83 @@ def select_rows(full, seg: plain.Segments):
     [M, 4, n_pos] / [M, n_pos] linkage profiles at the SNV positions, each
     sized exactly; rows["seg_start"] / linkage["seg_start"] [S + 1] hold
     each segment's first record and first SNV position."""
-    name = "select_rows"
     if full["row"].device.type == "cpu":
         return plain.select_rows_seg(full, seg)
+    job = _rows_count(full, seg)
+    n_rows, n_pos = (int(x) for x in job.sizes.tolist())   # 8-byte D2H
+    out = _rows_gather(job, n_rows, n_pos)
+    select_rows.launches += 1
+    return out
+
+
+class _RowsJob(NamedTuple):
+    """select_rows between its two launches: the inputs' addresses and the
+    device arrays the count launch filled."""
+    M: int
+    L: int
+    dev: torch.device
+    ptrs: list
+    st: tuple
+    row_off: torch.Tensor
+    pos_off: torch.Tensor
+    starts: torch.Tensor
+    sizes: torch.Tensor
+
+
+def _rows_count(full, seg: plain.Segments) -> _RowsJob:
+    """select_rows' first launch (count and scan) on CUDA tensors."""
+    name = "select_rows"
     keys = ("row", "any_snp", "cum", "total", "con", "var", "morphia",
             "cls", "cryptic", "present")
     M, L, dev = _check_full(full, keys, name)
     _check_seg(full["total"], seg, name)
-    lib = _lib()
-    row_off = torch.empty(seg.n_tiles, dtype=torch.int32, device=dev)
-    pos_off = torch.empty(seg.n_tiles, dtype=torch.int32, device=dev)
-    starts = torch.empty((2, seg.S + 1), dtype=torch.int32, device=dev)
-    sizes = torch.empty(2, dtype=torch.int32, device=dev)
-    st = (seg.table_ptr(), seg.S, seg.n_tiles)
+    ptrs = [full[k].data_ptr() for k in keys]
+    # per tile counts, scanned in place into offsets (entry n_tiles: the
+    # totals), each segment's first row and SNV position, the two totals
+    T, S = seg.n_tiles + 1, seg.S + 1
+    ints = torch.empty(2 * T + 2 * S + 2, dtype=torch.int32, device=dev)
+    job = _RowsJob(M, L, dev, ptrs, (seg.table_ptr(), seg.S, seg.n_tiles),
+                   ints[:T], ints[T:2 * T], ints[2 * T:2 * T + 2 * S].view(
+                       2, S), ints[2 * T + 2 * S:])
     with torch.cuda.device(dev):
-        s = _stream(full["row"])
-        _check(lib.instrain_rows_count(
-            full["row"].data_ptr(), full["any_snp"].data_ptr(), M, L, *st,
-            row_off.data_ptr(), pos_off.data_ptr(), sizes.data_ptr(),
-            starts[0].data_ptr(), starts[1].data_ptr(), s), name)
-        n_rows, n_pos = (int(x) for x in sizes.tolist())   # 8-byte D2H
-        r_i32 = torch.empty((6, n_rows), dtype=torch.int32, device=dev)
-        r_total = torch.empty(n_rows, dtype=torch.int64, device=dev)
-        r_codes = torch.empty((4, n_rows), dtype=torch.int8, device=dev)
-        r_cryptic = torch.empty(n_rows, dtype=torch.bool, device=dev)
-        l_pos = torch.empty(n_pos, dtype=torch.int32, device=dev)
-        l_cum = torch.empty((M, 4, n_pos), dtype=torch.int32, device=dev)
-        l_present = torch.empty((M, n_pos), dtype=torch.bool, device=dev)
-        if n_rows or n_pos:
-            _check(lib.instrain_rows_gather(
-                *[full[k].data_ptr() for k in keys], M, L, *st,
-                row_off.data_ptr(), pos_off.data_ptr(), n_rows, n_pos,
-                r_i32.data_ptr(), r_total.data_ptr(), r_codes.data_ptr(),
-                r_cryptic.data_ptr(), l_pos.data_ptr(), l_cum.data_ptr(),
-                l_present.data_ptr(), s), name)
-    select_rows.launches += 1
+        _check(_lib().instrain_rows_count(
+            ptrs[0], ptrs[1], M, L, *job.st, job.row_off.data_ptr(),
+            job.pos_off.data_ptr(), job.sizes.data_ptr(),
+            job.starts[0].data_ptr(), job.starts[1].data_ptr(),
+            _stream(full["row"])), name)
+    return job
+
+
+def _rows_gather(job: _RowsJob, n_rows: int, n_pos: int):
+    """select_rows' second launch, the outputs sized by the totals: every
+    output in one allocation, widest types first (r_total, r_i32, l_pos,
+    l_cum, r_codes, r_cryptic, l_present), the views made after the
+    launch."""
+    M = job.M
+    nbytes = [8 * n_rows, 24 * n_rows, 4 * n_pos, 16 * M * n_pos,
+              4 * n_rows, n_rows, M * n_pos]
+    buf = torch.empty(sum(nbytes), dtype=torch.uint8, device=job.dev)
+    at = list(itertools.accumulate(nbytes, initial=buf.data_ptr()))
+    if n_rows or n_pos:
+        with torch.cuda.device(job.dev):
+            _check(_lib().instrain_rows_gather(
+                *job.ptrs, M, job.L, *job.st, job.row_off.data_ptr(),
+                job.pos_off.data_ptr(), n_rows, n_pos,
+                *(at[i] for i in (1, 0, 4, 5, 2, 3, 6)), _stream(buf)),
+                "select_rows")
+    parts = buf.split(nbytes)
+    r_total = parts[0].view(torch.int64)
+    r_i32 = parts[1].view(torch.int32).view(6, n_rows)
+    r_codes = parts[4].view(torch.int8).view(4, n_rows)
     rows = dict(pos=r_i32[0], mm_idx=r_i32[1], A=r_i32[2], C=r_i32[3],
                 T=r_i32[4], G=r_i32[5], total=r_total, con=r_codes[0],
                 var=r_codes[1], morphia=r_codes[2], cls=r_codes[3],
-                cryptic=r_cryptic, n_rows=n_rows)
-    rows["seg_start"] = starts[0]
-    linkage = dict(pos=l_pos, cum=l_cum, present=l_present, n_pos=n_pos,
-                   seg_start=starts[1])
+                cryptic=parts[5].view(torch.bool), n_rows=n_rows,
+                seg_start=job.starts[0])
+    linkage = dict(pos=parts[2].view(torch.int32),
+                   cum=parts[3].view(torch.int32).view(M, 4, n_pos),
+                   present=parts[6].view(torch.bool).view(M, n_pos),
+                   n_pos=n_pos, seg_start=job.starts[1])
     return rows, linkage
 
 
@@ -198,6 +245,62 @@ def mm_aggregates(full, seg: plain.Segments):
 mm_aggregates.launches = 0
 
 
+# masked_median: the longest segment whose rows one block holds in shared
+# memory (4 bytes a key, beside the kernel's own 8 KB histogram, within the
+# 227 KB a block may take; compact.cu's kShortKeysMax, to which it raises
+# the short kernel's shared memory once); longer rows are split over blocks
+# of at least MEDIAN_MIN_CHUNK keys, enough to give each SM
+# MEDIAN_BLOCKS_PER_SM, each row with 8 words of state, a histogram of
+# MEDIAN_BINS bins and a ticket.
+MEDIAN_SHORT_KEYS = 49152
+MEDIAN_MIN_CHUNK = 16384
+MEDIAN_BLOCKS_PER_SM = 8
+MEDIAN_BINS = 2048
+
+
+class MedianPlan(NamedTuple):
+    """How masked_median splits a chunk's rows (one per segment, mm level
+    and value set): every row of a segment of at most MEDIAN_SHORT_KEYS
+    positions is one block's, short_keys the longest such segment rounded
+    up to a multiple of 4 (0 when there is none); the rows of each long
+    segment are split into chunks of `chunk` positions, one block each,
+    long segment i's chunk blocks starting at first_block[i]
+    (first_block[-1]: the chunk blocks in all)."""
+    short_keys: int
+    short_segments: Tuple[int, ...]
+    long_segments: Tuple[int, ...]
+    chunk: int
+    first_block: Tuple[int, ...]
+
+
+def median_plan(lengths, M: int, sms: int = 132) -> MedianPlan:
+    """The plan for segments of `lengths` at M mm levels on a card of
+    `sms` SMs (plain Python: it runs before every launch)."""
+    short = tuple(s for s, n in enumerate(lengths) if n <= MEDIAN_SHORT_KEYS)
+    long_ = tuple(s for s, n in enumerate(lengths) if n > MEDIAN_SHORT_KEYS)
+    short_keys = -(-max(lengths[s] for s in short) // 4) * 4 if short else 0
+    chunk, first = 0, [0]
+    if long_:
+        keys = sum(lengths[s] for s in long_) * 3 * M
+        # a multiple of 4096 keys, rounded down: at least the blocks asked
+        chunk = max(MEDIAN_MIN_CHUNK,
+                    keys // (sms * MEDIAN_BLOCKS_PER_SM) // 4096 * 4096)
+        for s in long_:
+            first.append(first[-1] - (-lengths[s] // chunk))
+    return MedianPlan(short_keys, short, long_, chunk, tuple(first))
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(dev) -> int:
+    """The device's SM count, read once."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
 def masked_median(total, clon_f, clonR_f, counted, rarefied,
                   seg: plain.Segments):
     """cov_median, clon_median, clonR_median [S, M] f32 of [S, M] counted
@@ -225,14 +328,38 @@ def masked_median(total, clon_f, clonR_f, counted, rarefied,
     for t in (total, clon_f, clonR_f, counted, rarefied):
         _require(t.device == total.device, name, "inputs on two devices")
         _require(t.is_contiguous(), name, "inputs must be contiguous")
-    out = torch.empty((3,) + agg_shape, dtype=torch.float32,
-                      device=total.device)
-    with torch.cuda.device(total.device):
-        _check(_lib().instrain_masked_median(
-            total.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
+    dev = total.device
+    off = seg.off.tolist()
+    plan = median_plan([b - a for a, b in zip(off, off[1:])], M, _sms(dev))
+    n_long = len(plan.long_segments)
+    n_blocks = plan.first_block[-1]
+    _require(seg.S * 3 * M < 2 ** 31 and n_blocks * 3 * M < 2 ** 31, name,
+             "too many (segment, mm, value set) rows")
+    out = torch.empty((3,) + agg_shape, dtype=torch.float32, device=dev)
+    args = (total.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
             counted.data_ptr(), rarefied.data_ptr(), M, L, seg.table_ptr(),
-            seg.S, out.data_ptr(), _stream(total)),
-            name)
+            seg.S)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        s = _stream(total)
+        if plan.short_keys:
+            _check(lib.instrain_median_short(*args, plan.short_keys,
+                                             out.data_ptr(), s), name)
+        if n_long:
+            # the long segments and their first chunk blocks, from pinned
+            # memory on the stream (none for a chunk of one segment)
+            table = None
+            if seg.S > 1:
+                table = torch.tensor(
+                    plan.long_segments + plan.first_block,
+                    dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+            # per long row: 8 words of state, a histogram, a ticket
+            scratch = torch.empty(n_long * 3 * M * (8 + MEDIAN_BINS + 1),
+                                  dtype=torch.int32, device=dev)
+            _check(lib.instrain_median_long(
+                *args, None if table is None else table.data_ptr(), n_long,
+                plan.chunk, n_blocks, scratch.data_ptr(), out.data_ptr(), s),
+                name)
     masked_median.launches += 1
     return dict(zip(plain.AGG_MEDIAN, out))
 

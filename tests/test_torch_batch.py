@@ -337,7 +337,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,lengths", [(8, [1, 1237, 40000, 300, 4096]),
                                        (33, [160, 1, 5000]),
-                                       (1, [7, 3000, 1_100_000])])
+                                       (1, [7, 3000, 1_100_000]),
+                                       (3, [1, 49152, 49153, 2]),
+                                       (33, [40000] * 3),
+                                       (80, [300, 1, 2000])])
 def test_segmented_kernels_match_plain_on_gpu(M, lengths, cuda_device):
     parts = [G.make_inputs(M, L, 3 + i) for i, L in enumerate(lengths)]
     counts = torch.from_numpy(np.concatenate([c for c, _ in parts], axis=2))

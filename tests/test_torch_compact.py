@@ -19,6 +19,7 @@ because the dense engine's means are f32 numpy means.
 """
 
 import os
+import re
 
 import numpy as np
 import pandas as pd
@@ -445,6 +446,151 @@ def test_plain_matches_compact_golden(M, L, seed):
                          one_scaffold(CC.compact_from_full(full, seg)), tag)
 
 
+# masked_median's plan (cuda_compact.median_plan) and its select, here in
+# PyTorch: the CUDA kernel runs only on the card, so its plan and its
+# arithmetic are held to the plain version on the CPU.
+
+SMEM_PER_BLOCK = 232448      # bytes a block may take on an H100 (227 KB)
+SHORT_STATIC_SMEM = 9216     # the short kernel's static shared arrays, at most
+PLAN_CASES = [([40000] * 52, 8), ([1 << 20], 8), ([2_500_000], 5),
+              ([250_000], 5), ([1, CC.MEDIAN_SHORT_KEYS,
+                                CC.MEDIAN_SHORT_KEYS + 1, 7], 3),
+              ([CC.MEDIAN_SHORT_KEYS + 1] * 3, 33), ([1], 1),
+              ([16384, 5_000_000, 70_000, 2], 2), ([3] * 40, 80)]
+
+
+@pytest.mark.parametrize("lengths,M", PLAN_CASES,
+                         ids=[f"S{len(c[0])}-M{c[1]}" for c in PLAN_CASES])
+def test_median_plan_covers_every_row(lengths, M):
+    """Every (segment, mm level, value set) row is one short block's or
+    split into disjoint chunk ranges that cover it; short rows fit in
+    shared memory; long rows fill the card."""
+    plan = CC.median_plan(lengths, M, sms=132)
+    lengths = np.asarray(lengths)
+    assert plan == CC.median_plan(lengths.tolist(), M)
+    short, long_ = list(plan.short_segments), list(plan.long_segments)
+    assert sorted(short + long_) == list(range(len(lengths)))
+    assert (lengths[short] <= CC.MEDIAN_SHORT_KEYS).all()
+    assert (lengths[long_] > CC.MEDIAN_SHORT_KEYS).all()
+    assert plan.short_keys == (-(-lengths[short].max() // 4) * 4
+                               if short else 0)
+    assert plan.short_keys <= CC.MEDIAN_SHORT_KEYS
+    # the short kernel's dynamic shared memory: 4 bytes a key
+    assert plan.short_keys * 4 + SHORT_STATIC_SMEM <= SMEM_PER_BLOCK
+    assert len(plan.first_block) == len(long_) + 1
+    assert plan.first_block[0] == 0
+    blocks = 0
+    for i, s in enumerate(long_):
+        n = int(lengths[s])
+        nb = int(plan.first_block[i + 1] - plan.first_block[i])
+        ranges = [(k * plan.chunk, min(n, (k + 1) * plan.chunk))
+                  for k in range(nb)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a < b for a, b in ranges)
+        assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
+        blocks += nb
+    # one block per short row; every long row's chunks: each row once
+    rows = [(s, m, w) for s in short for m in range(M) for w in range(3)]
+    rows += [(s, m, w) for s in long_ for m in range(M) for w in range(3)]
+    assert len(set(rows)) == len(lengths) * M * 3
+    if long_:
+        assert plan.chunk >= CC.MEDIAN_MIN_CHUNK and plan.chunk % 4096 == 0
+        keys = int(lengths[long_].sum()) * 3 * M
+        if keys >= 132 * CC.MEDIAN_BLOCKS_PER_SM * CC.MEDIAN_MIN_CHUNK:
+            assert blocks * 3 * M >= 132 * CC.MEDIAN_BLOCKS_PER_SM
+
+
+def test_median_short_limit_matches_kernel():
+    """The wrapper's short-row limit is the one compact.cu raises the
+    short kernel's dynamic shared memory to, once per device, and that
+    limit fits a block beside the kernel's static arrays."""
+    path = os.path.join(os.path.dirname(CC.__file__), os.pardir, "csrc",
+                        "compact.cu")
+    with open(path) as f:
+        m = re.search(r"constexpr int kShortKeysMax = (\d+);", f.read())
+    assert m and int(m.group(1)) == CC.MEDIAN_SHORT_KEYS
+    assert CC.MEDIAN_SHORT_KEYS * 4 + SHORT_STATIC_SMEM <= SMEM_PER_BLOCK
+
+
+def radix_median(vals, count):
+    """The masked_median kernels' select, row by row in PyTorch: digits of
+    11, 11 and 10 bits from the top of the f32 keys, each pass a histogram
+    of the group's digit; the ranks k1 and k2 narrow together, and once
+    their bins differ, k1 is the largest key of its bin's group and k2 the
+    smallest of its own (a min/max pass); NaN where count is 0."""
+    keys = vals.contiguous().view(torch.int32).to(torch.int64)
+    out = []
+    for key, c in zip(keys, count.tolist()):
+        if c <= 0:
+            out.append(float("nan"))
+            continue
+        k1, k2 = (c - 1) // 2 + 1, c // 2 + 1
+        prefix = mask = 0
+        shift = 32
+        for i, w in enumerate((11, 11, 10)):
+            shift -= w
+            digit = (1 << w) - 1
+            group = key[(key & mask) == prefix]
+            hist = torch.bincount((group >> shift) & digit, minlength=1 << w)
+            cum = hist.cumsum(0)
+            d1 = int(torch.searchsorted(cum, k1))
+            d2 = int(torch.searchsorted(cum, k2))
+            b1 = int(cum[d1] - hist[d1])
+            p = prefix
+            prefix, prefix2 = p | (d1 << shift), p | (d2 << shift)
+            mask |= digit << shift
+            if i == 2:
+                v1, v2 = prefix, prefix2
+                break
+            if d1 != d2:
+                v1 = int(key[(key & mask) == prefix].max())
+                v2 = int(key[(key & mask) == prefix2].min())
+                break
+            k1, k2 = k1 - b1, k2 - b1
+        v = torch.tensor([v1, v2], dtype=torch.int32).view(torch.float32)
+        out.append(float((v[0] + v[1]) / 2))
+    return torch.tensor(out, dtype=torch.float32)
+
+
+def adversarial_rows(n, seed):
+    """[R, n] f32 rows, members >= 0 and +inf past them, with their
+    counts: all values equal; 1 or 2 members among +inf; clustered
+    coverages; f32 patterns on the digits' boundaries; counts 0, 1, 2,
+    n - 1, n and at random."""
+    rng = np.random.default_rng(seed)
+    bits = np.array([0, 0x3E000000, 0x3EFFFFFF, 0x3F000000, 0x3F000001,
+                     0x3F7FFBFF, 0x3F7FFC00, 0x3F7FFFFF, 0x3F800000,
+                     0x3F800001, 0x3F800400, 0x3F801000, 0x45000000,
+                     0x4B800000, 0x4B800001], np.uint32)
+    rows, counts = [], []
+
+    def add(v, c):
+        c = int(min(c, n))
+        v = np.sort(v.astype(np.float32))
+        v[c:] = np.inf
+        rows.append(rng.permutation(v))
+        counts.append(c)
+
+    for c in (0, 1, 2, max(n - 1, 0), n):
+        add(np.full(n, 30.0), c)
+        add(rng.choice(bits, n).view(np.float32), c)
+    for c in (1, 2):
+        add(rng.random(n), c)
+    add(rng.choice([29.0, 30.0, 31.0], n), n)
+    add(rng.integers(0, 2 ** 25, n).astype(np.float32), n)
+    add(rng.choice(bits[:4], n).view(np.float32), int(rng.integers(0, n + 1)))
+    return (torch.from_numpy(np.stack(rows)),
+            torch.tensor(counts, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 1000])
+def test_radix_select_matches_median_select(n, seed):
+    vals, count = adversarial_rows(n, n + seed)
+    _assert_bits_equal(S.median_select(vals, count).numpy(),
+                       radix_median(vals, count), (n, seed))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -454,7 +600,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,L,seed", [(1, 1237, 0), (8, 4096, 1),
-                                      (33, 5000, 2), (8, 300_001, 3)])
+                                      (33, 5000, 2), (8, 300_001, 3),
+                                      (1, 1, 4), (3, 49152, 5),
+                                      (3, 49153, 6), (33, 40000, 7),
+                                      (80, 700, 8)])
 def test_k4_kernels_match_plain_on_gpu(M, L, seed, cuda_device):
     counts, ref = G.make_inputs(M, L, seed)
     seg = C.single_segment(L, PC._fold_keys(seed, [seed])[0], cuda_device)
