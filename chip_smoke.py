@@ -30,11 +30,15 @@ Phases (each prints its own lines; the first failure exits non-zero):
      0-3 counted values among +inf, values on the select's digit
      boundaries); and the linkage kernel (K6) against its plain version
      and the JAX package's golden file, every column bit for bit. Then the
-     overlap kernel of compare (K7) against its plain version and the host
-     popcount, exact, at five (samples, mm levels, positions) shapes up to
-     (16, 4, 2^23) and (64, 3, 100000), and timed beside the bf16 product
-     of the unpacked bits; the host popcount against the kernel with its
-     copies over the work n^2 * Mg * L that compare's auto engine reads.
+     overlap kernel of compare (K7), one launch per comparison group,
+     against its plain group version and the host popcount, exact, at
+     groups of one scaffold of (samples, mm levels, positions) up to
+     (16, 4, 2^23) and (64, 3, 100000), groups of mixed N (1-64), Mg (1-5)
+     and L (1, 63, 64, 4099, 40000, one of 2^23 among short ones) and the
+     study's group of 128 x (8, 5, 40 kb); timed beside the bf16 product of
+     the unpacked bits at the study's group and the two large shapes; the
+     host popcount against the group launch with its copies over the
+     summed work n^2 * Mg * L that compare's auto engine reads.
      Kernel and plain times from CUDA events, each kernel's bound from its
      bytes and operations at the card's rates;
   4. end to end: `instrain_tpu_torch profile` through the CLI on a small
@@ -60,11 +64,12 @@ Phases (each prints its own lines; the first failure exits non-zero):
      genome-wide aggregation, and compared (with -s, --bams,
      --store_mismatch_locations and --store_coverage_overlap) on the card
      through the overlap kernel (launch counts reset just before and read
-     just after: once per scaffold), with the host engine, on --device cpu
-     and with --engine auto (no launch below its bound), every TSV byte
-     for byte, a comparison row per (scaffold, pair, mm level) and no
-     scaffold failure. The batch engine's profiled run also reports, per
-     chunk, its H2D bytes and time beside its kernels' (from the trace);
+     just after: once per comparison group), with the host engine, on
+     --device cpu and with --engine auto (a launch per group from its
+     bound on), every TSV byte for byte, a comparison row per (scaffold,
+     pair, mm level) and no scaffold failure. The batch engine's profiled
+     run also reports, per chunk, its H2D bytes and time beside its
+     kernels' (from the trace);
   5. timing: select_rows and masked_median at the inputs compact_from_full
      got in the three auto runs (the metagenome's largest chunk, the
      isolate, the deep input), at a 52 x 40 kb chunk and at one segment
@@ -221,12 +226,11 @@ def timed_pair(torch, kernel, plain, n_kernel, n_plain):
 # the bytes it must move (each input read once, each output written once)
 # over the memory rate and its operations over their issue rate. Rates:
 # HBM3 3.35 TB/s (H100 SXM data sheet); per SM and clock on cc 9.0, 64
-# 32-bit integer adds, shifts or logic operations and 16 population
-# counts (CUDA C++ Programming Guide, arithmetic instruction throughput),
-# times the SMs and the card's maximum SM clock from nvidia-smi.
+# 32-bit integer adds, shifts or logic operations (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), times the SMs and the card's
+# maximum SM clock from nvidia-smi.
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_CLK_SM = 64
-POPC_PER_CLK_SM = 16
 THREEFRY_OPS = 90     # 32-bit operations of one Threefry-2x32 draw
 
 
@@ -238,10 +242,8 @@ def card_rates(torch):
     hz = float(res.stdout.split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("env", f"{sms} SMs at up to {hz / 1e6:.0f} MHz: "
-               f"{sms * INT32_PER_CLK_SM * hz:.4g} int32 op/s, "
-               f"{sms * POPC_PER_CLK_SM * hz:.4g} popc/s")
-    return {"int32": sms * INT32_PER_CLK_SM * hz,
-            "popc": sms * POPC_PER_CLK_SM * hz}
+               f"{sms * INT32_PER_CLK_SM * hz:.4g} int32 op/s")
+    return {"int32": sms * INT32_PER_CLK_SM * hz}
 
 
 def nbytes(*objs):
@@ -1482,41 +1484,88 @@ def random_words(rng, N, Mg, L):
     return words
 
 
-def phase_compare_kernel(torch, card, rates):
-    """The overlap_counts kernel (K7) against its plain version and the
-    host popcount, exact at five shapes; then the kernel, the plain
-    version, the host path and the bf16 matrix product of the unpacked
-    bits (the JAX package's method, the yardstick) in turns at two."""
+def group_words(rng, shapes):
+    """Packed masks of a group of scaffolds of (N, Mg, L)."""
+    return [random_words(rng, *d) for d in shapes]
+
+
+def group_on_card(torch, words):
+    """(plan, host buffer, device buffer) of a group of packed masks."""
+    from instrain_tpu_torch.kernels import compare as K
+    from instrain_tpu_torch.kernels.cuda_compact import _sms
+    dev = torch.device("cuda")
+    plan = K.group_plan([w.shape for w in words], _sms(dev))
+    buf = torch.from_numpy(K.group_buffer(words, plan))
+    return plan, buf, buf.to(dev)
+
+
+# K7's exactness shapes: groups of (samples, mm levels, positions)
+K7_GROUPS = [
+    [(2, 1, 1)], [(3, 2, 4099)], [(8, 5, 40_000)], [(16, 4, 1 << 23)],
+    [(64, 3, 100_000)],
+    [(1, 1, 1), (2, 5, 63), (8, 3, 64), (17, 1, 4099), (64, 2, 40_000),
+     (8, 4, 1), (17, 5, 63), (2, 2, 40_000), (1, 3, 4099), (64, 1, 64)],
+    [(2, 1, 63), (8, 5, 4099), (16, 4, 1 << 23), (17, 2, 1), (64, 3, 64),
+     (1, 5, 40_000)],
+]
+STUDY_GROUP = [(8, 5, 40_000)] * 128     # the study's one group
+
+
+def overlap_bound(words, plan):
+    """K7's bound: the group's words read once and its counts written
+    once. Its operations run on the tensor cores' binary product, whose
+    rate no data sheet in use here gives; k7_peak.cu measures it far above
+    what the bytes feed it."""
+    return bound(sum(w.nbytes for w in words) + 8 * plan.n_out)
+
+
+def phase_compare_kernel(torch, card):
+    """The group overlap kernel (K7) against its plain version and the host
+    popcount, exact, one launch per group: single scaffolds up to
+    (16, 4, 2^23) and (64, 3, 100,000), groups of mixed N (1-64), Mg (1-5)
+    and L (1, 63, 64, 4099, 40,000, one of 2^23 among short ones), and the
+    study's group of 128 x (8, 5, 40 kb); then timed in turns with the
+    plain version and the bf16 product of the unpacked bits (the JAX
+    package's method, the yardstick) at the study's group and at
+    (16, 4, 2^23) and (64, 3, 100,000)."""
     import numpy as np
     from instrain_tpu_torch.kernels import compare as K
     from instrain_tpu_torch.kernels import cuda_compare as CC
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
-    shapes = [(2, 1, 1), (3, 2, 4099), (8, 5, 40_000), (16, 4, 1 << 23),
-              (64, 3, 100_000)]
     times = {}
-    for N, Mg, L in shapes:
-        words = random_words(rng, N, Mg, L)
-        t = torch.from_numpy(words.view(np.int64)).to(dev)
-        got = CC.overlap_counts(t)
-        plain = K.overlap_counts_plain(t)
+    for shapes in K7_GROUPS + [STUDY_GROUP]:
+        words = group_words(rng, shapes)
+        plan, buf, dbuf = group_on_card(torch, words)
+        CC.reset_launch_counts()
+        got = CC.overlap_counts_group(dbuf, plan)
+        check(CC.launch_counts()["overlap_counts"] == 1,
+              "overlap_counts_group: not one launch")
+        plain = K.overlap_counts_group_plain(dbuf, plan)
         torch.cuda.synchronize()
-        host = K.pairwise_overlap_counts_host(words)
-        for ref, what in ((plain, "plain"), (host, "host")):
-            for x, y, k in zip(got, ref, ("both", "single")):
-                y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
-                check(np.array_equal(x.cpu().numpy(), y),
-                      f"overlap_counts N={N} Mg={Mg} L={L}: {k} differs "
-                      f"from the {what} path")
-        log("compare", f"overlap_counts N={N} Mg={Mg} L={L}: == plain and "
-                       f"== host popcount, exact (diagonal sum "
-                       f"{int(got[1].sum())})")
-        if (N, Mg, L) not in ((8, 5, 40_000), (16, 4, 1 << 23)):
+        what = (f"overlap_counts, group of {len(shapes)} (N, Mg, L) "
+                f"{shapes[:6]}{' ...' if len(shapes) > 6 else ''}")
+        check(torch.equal(got, plain), f"{what}: differs from the plain "
+                                       f"group version")
+        counts = K.split_counts(got.cpu().numpy(), plan)
+        for w, (b, sg) in zip(words, counts):
+            hb, hs = K.pairwise_overlap_counts_host(w)
+            check(np.array_equal(b, hb) and np.array_equal(sg, hs),
+                  f"{what}: differs from the host popcount")
+        log("compare", f"{what}: one launch of {plan.n_blocks} blocks == "
+                       f"plain group version and == host popcount per "
+                       f"scaffold, exact (diagonal sum "
+                       f"{int(sum(sg.sum() for _, sg in counts))})")
+        if shapes not in ([(16, 4, 1 << 23)], [(64, 3, 100_000)],
+                          STUDY_GROUP):
             continue
-        # the yardstick: bits unpacked to bf16 [Mg, N, L] once, outside
-        # the timing, then one batched product with f32 results
-        bits = torch.from_numpy(K.unpack_words(words, L)).to(dev)
+        # the yardstick: bits unpacked to bf16 [sum Mg, N, L] once,
+        # outside the timing, then one batched product with f32 results
+        # (the scaffolds of a timed group share N and L: no padding)
+        N, _, L = shapes[0]
+        bits = torch.from_numpy(np.concatenate(
+            [K.unpack_words(w, L) for w in words], axis=1)).to(dev)
         x = bits.to(torch.bfloat16).permute(1, 0, 2).contiguous()
         del bits
         xt = x.transpose(1, 2)
@@ -1525,64 +1574,78 @@ def phase_compare_kernel(torch, card, rates):
             return torch.bmm(x, xt, out_dtype=torch.float32)
 
         lib_out = library()
-        check(torch.equal(lib_out.to(torch.int64), got[0]),
-              f"bf16 product at N={N} Mg={Mg} L={L} is not exact")
-        k_ms, p_ms = timed_pair(torch, lambda: CC.overlap_counts(t),
-                                lambda: K.overlap_counts_plain(t), 20, 3)
+        want_both = torch.cat([torch.as_tensor(b).reshape(-1, N, N)
+                               for b, _ in counts]).to(dev)
+        check(torch.equal(lib_out.to(torch.int64), want_both),
+              f"bf16 product of {what} is not exact")
+        k_ms, p_ms = timed_pair(torch, lambda: CC.overlap_counts_group(
+            dbuf, plan), lambda: K.overlap_counts_group_plain(dbuf, plan),
+            20, 1 if len(shapes) > 1 else 3)
         l1 = cuda_ms(torch, library, 10)
-        h = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            K.pairwise_overlap_counts_host(words)
-            h.append((time.perf_counter() - t0) * 1e3)
+        dev_ms = cold_ms(torch, lambda: CC.overlap_counts_group(dbuf, plan),
+                         20, busy=True)
         l2 = cuda_ms(torch, library, 10)
-        pops = N * (N + 1) // 2 * Mg * -(-L // 32)
-        b_ms, b_by = bound(words.nbytes + nbytes(got), pops, rates["popc"])
-        times[(N, Mg, L)] = dict(ms=k_ms, plain_ms=p_ms, host_ms=min(h),
-                                 library_ms=(l1 + l2) / 2, bound_ms=b_ms,
-                                 bound_by=b_by)
-        log("compare", f"time N={N} Mg={Mg} L={L} on {card}: kernel "
-                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, host numpy "
-                       f"{min(h):.4f} ms, bf16 bmm (unpacked, f32 out) "
-                       f"{(l1 + l2) / 2:.4f} ms; bound {b_ms:.4f} ms "
-                       f"({b_by}: {words.nbytes} bytes, {pops} popc)")
+        b_ms, b_by = overlap_bound(words, plan)
+        key = "study" if shapes is STUDY_GROUP else shapes[0]
+        times[key] = dict(ms=k_ms, plain_ms=p_ms, device_ms=dev_ms,
+                          library_ms=(l1 + l2) / 2, bound_ms=b_ms,
+                          bound_by=b_by)
+        log("compare", f"time, group of {len(shapes)} x {shapes[0]} on "
+                       f"{card}: kernel {k_ms:.4f} ms warm, {dev_ms:.4f} ms "
+                       f"device after an L2 flush; plain {p_ms:.4f} ms, "
+                       f"bf16 bmm (unpacked, f32 out) {(l1 + l2) / 2:.4f} "
+                       f"ms; bound {b_ms:.4f} ms ({b_by})")
         del x, xt, lib_out
     return times
 
 
 def phase_compare_crossover(torch, card):
-    """The host popcount against the kernel with its copies (words to the
-    card, counts back), as compare/pipeline.py:overlap_counts runs them,
-    over the work n^2 * Mg * L that the auto engine's bound reads."""
+    """A group's overlap counts by the kernel with its copies (one H2D of
+    the group's buffer, the launch, one D2H of the counts, as
+    compare/pipeline.py:group_overlap_counts runs them) against the host
+    popcount over the same group, across the summed work n^2 * Mg * L that
+    the auto engine's bound reads."""
     import numpy as np
     from instrain_tpu_torch.compare import pipeline as CP
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     rows = []
-    for N in (8, 32):
-        for L in (1 << k for k in range(6, 23, 2)):
-            words = random_words(rng, N, 4, L)
+    for N, G in ((8, 1), (8, 16), (32, 4)):
+        for L in (1 << k for k in range(6, 19, 2)):
+            words = group_words(rng, [(N, 4, L)] * G)
+            lengths = [L] * G
+            runs = {
+                "host": lambda: [CP.host_overlap_counts(w) for w in words],
+                "device": lambda: CP.group_overlap_counts(words, lengths,
+                                                          "device", dev)}
             ms = {}
             for eng in ("host", "device", "device", "host"):
-                CP.overlap_counts(words, L, eng, dev)     # warm
+                runs[eng]()                                  # warm
                 best = float("inf")
                 for _ in range(3):
                     t0 = time.perf_counter()
-                    CP.overlap_counts(words, L, eng, dev)
+                    runs[eng]()
                     torch.cuda.synchronize()
                     best = min(best, time.perf_counter() - t0)
                 ms.setdefault(eng, []).append(best * 1e3)
             host, device = min(ms["host"]), min(ms["device"])
-            rows.append((N * N * 4 * L, N, L, host, device))
-            log("compare", f"crossover N={N} Mg=4 L={L} (n^2*Mg*L = "
-                           f"{N * N * 4 * L:.3g}) on {card}: host "
-                           f"{host:.4f} ms, kernel with copies "
+            work = G * N * N * 4 * L
+            rows.append((work, host, device))
+            log("compare", f"crossover, group of {G} x (N={N}, Mg=4, L={L})"
+                           f" (sum n^2*Mg*L = {work:.4g}) on {card}: host "
+                           f"{host:.4f} ms, one launch with its copies "
                            f"{device:.4f} ms")
-    faster = [w for w, _, _, h, d in rows if d < h]
-    log("compare", f"kernel with copies faster than the host from "
-                   f"n^2*Mg*L = {min(faster) if faster else 'never'} on in "
-                   f"this sweep; the auto bound is {CP.DEVICE_MIN_WORK}")
+    # the least swept work from which on the launch wins everywhere
+    from_on = None
+    for w, h, d in sorted(rows, reverse=True):
+        if d >= h:
+            break
+        from_on = w
+    log("compare", f"the group launch with its copies is faster than the "
+                   f"host popcount at every swept work from {from_on} on; "
+                   f"the auto bound is {CP.DEVICE_MIN_WORK}")
+    return rows
 
 
 def phase_compare_e2e(torch):
@@ -1650,11 +1713,16 @@ def phase_compare_e2e(torch):
               for p in profiles]
     scaffolds = set.intersection(*(set(lv) for lv in levels))
     check(len(scaffolds) == 128, f"{len(scaffolds)} scaffolds in common")
+    study_work = 0      # the auto rule's n^2 * Mg * L over the group
     for s in scaffolds:
         for i in range(8):
             for j in range(i + 1, 8):
                 want += len(levels[i][s] | levels[j][s])
+        study_work += 64 * len(set().union(*(lv[s] for lv in levels))) * \
+            40_000
     del levels
+    n_groups = -(-128 * 40_000 // 10_000_000)     # --group_length default
+    auto_launches = n_groups if study_work >= CP.DEVICE_MIN_WORK else 0
 
     lean = ["-s", stb, "--skip_plot_generation"]
     flags = lean + ["--bams"] + bams + ["--store_mismatch_locations",
@@ -1665,8 +1733,8 @@ def phase_compare_e2e(torch):
         (kind, unit, detail))
     runs = {}
     try:
-        # auto shows the engine rule (no launch below its bound), without
-        # pooling and the stores, which no engine changes
+        # auto shows the engine rule (a launch per group from its bound
+        # on), without pooling and the stores, which no engine changes
         for tag, engine, device in (("device", "device", "cuda"),
                                     ("host", "host", "cuda"),
                                     ("cpu", "device", "cpu"),
@@ -1697,13 +1765,20 @@ def phase_compare_e2e(torch):
     check(not failures, f"compare logged failures: {failures[:3]}")
 
     out, got = runs["device"]
-    check(got["overlap_counts"] == 128 and
+    check(got["overlap_counts"] == n_groups and
           sum(got.values()) == got["overlap_counts"],
           f"compare --engine device: launches {got}, expected "
-          f"overlap_counts once for each of the 128 scaffolds")
-    for tag in ("host", "cpu", "auto"):
+          f"overlap_counts once for each of the {n_groups} comparison "
+          f"group(s)")
+    for tag in ("host", "cpu"):
         check(sum(runs[tag][1].values()) == 0,
               f"compare {tag}: launches {runs[tag][1]}, expected none")
+    auto = runs["auto"][1]
+    check(auto["overlap_counts"] == auto_launches and
+          sum(auto.values()) == auto_launches,
+          f"compare auto: launches {auto}, expected {auto_launches} "
+          f"(the group's work {study_work}, the bound "
+          f"{CP.DEVICE_MIN_WORK})")
     tables = ["comparisonsTable", "genomeWide_compare", "strain_clusters",
               "pairwise_SNP_locations", "pooled_SNV_info", "pooled_SNV_data",
               "pooled_SNV_data_keys"]
@@ -1735,11 +1810,14 @@ def phase_compare_e2e(torch):
                                         "device.RC_strain_clusters.tsv"),
                            sep="\t")
     per_genome = clusters.groupby("genome")["cluster"].nunique().tolist()
-    log("e2e", f"compare: {want} (scaffold, pair, mm) rows, 128 launches "
-               f"of overlap_counts; the host engine's and --device cpu's "
-               f"TSVs, and auto's (0 launches) comparison, genome and "
-               f"cluster TSVs byte-identical to it; strain clusters per "
-               f"genome {per_genome}")
+    log("e2e", f"compare: {want} (scaffold, pair, mm) rows, "
+               f"{got['overlap_counts']} launch(es) of overlap_counts, one "
+               f"per comparison group; the host engine's and --device "
+               f"cpu's TSVs, and auto's ({auto_launches} launch(es): the "
+               f"group's n^2*Mg*L {study_work} against the bound "
+               f"{CP.DEVICE_MIN_WORK}) comparison, genome and cluster TSVs "
+               f"byte-identical to it; strain clusters per genome "
+               f"{per_genome}")
     return got["overlap_counts"]
 
 
@@ -1783,7 +1861,7 @@ def main():
         errs[k] = max(errs[k], v)
     errs["ld"] = phase_linkage(torch, card)
     rates = card_rates(torch)
-    k7 = phase_compare_kernel(torch, card, rates)
+    k7 = phase_compare_kernel(torch, card)
     phase_compare_crossover(torch, card)
     launches, ld_args, captured = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
@@ -1857,7 +1935,7 @@ def main():
              "launches": launches[name], "max_abs_err": errs[name],
              **{k: main_shape[name][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
-    main_shape = k7[(8, 5, 40_000)]     # the compare run's 8 samples
+    main_shape = k7["study"]     # the compare run's group: 8 samples
     kernels.append(
         {"name": "overlap_counts", "route": "cuda",
          "source": "instrain_tpu_torch/csrc/compare.cu",

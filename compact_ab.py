@@ -1,37 +1,53 @@
 #!/usr/bin/env python3
 """
-select_rows and masked_median of this checkout (csrc/compact.cu) against
-an earlier design of the same two kernels, in one process on one NVIDIA
-GPU, at the shapes chip_smoke.py times them at: the inputs
-compact_from_full gets in the three --engine auto runs of its main paths
-(the metagenome's largest chunk, the isolate, the deep input), a 52 x 40
-kb chunk and one segment of M = 8, L = 2^20.
+The compaction kernels select_rows and mm_aggregates and compare's overlap
+kernel (K7) of this checkout against an earlier design of the same
+kernels, in one process on one NVIDIA GPU, each design called through its
+own wrappers.
 
     mkdir -p .smoke/base
-    git archive 64c74d6 instrain_tpu_torch/csrc | tar -x -C .smoke/base
-    python3 compact_ab.py .smoke/base/instrain_tpu_torch/csrc
+    git archive 60a2909 instrain_tpu_torch | tar -x -C .smoke/base
+    python3 compact_ab.py .smoke/base/instrain_tpu_torch
 
-The earlier design is that of commit 64c74d6: its compact.cu exports
-instrain_rows_count and instrain_rows_gather with the arguments of this
-checkout's, and masked_median as one launch, instrain_masked_median. It
-is built alone (nvcc, sm_90a, beside its directory's segments.cuh) into
-the package's _build/, and its outputs are held to this checkout's
-kernels bit for bit at every shape. Then, for each shape and kernel, in
-turns (earlier, this, this, earlier), every call after an L2 flush and
-timed by CUDA events: the device time of the launches alone (the card
-kept busy while the host enqueues them; select_rows' count and gather
-launches timed apart, the host read of its totals between them left
-out), and the wrapper's time, that read included. The bound is
-chip_smoke.py's. Prints a line per shape, then the card's name and power
-limit, then every time as one JSON object on the last line. Imports
-nothing of JAX; writes only under .smoke/ab/.
+DIR is the earlier commit's package: it is loaded beside this checkout's
+as the package `instrain_earlier` (its modules import one another
+relatively) and builds its own kernels into its own _build/. Its
+wrappers are those of 60a2909's design: select_rows' and mm_aggregates'
+input checks format their messages on every call, mm_aggregates zero-
+fills its three outputs and launches one thread per position, and K7 is
+one launch per scaffold (instrain_overlap_counts). Both designs take this
+checkout's segment tables (the earlier kernels read their first three
+sections).
+
+The compaction kernels at the shapes chip_smoke.py times them at: the
+inputs compact_from_full gets in the three --engine auto runs of its main
+paths (the metagenome's largest chunk, the isolate, the deep input), a
+52 x 40 kb chunk and one segment of M = 8, L = 2^20. K7 at (a) the
+8-sample study's comparison group, 128 scaffolds of (8 samples, 5 mm
+levels, 40 kb): this design's one launch against the earlier 128
+per-scaffold calls, on words already on the card and with the copies
+each pipeline makes (one of the group's buffer and one of its counts;
+two per scaffold), beside one bf16 torch.bmm of the group's unpacked bits
+[128 * 5, 8, 40000] with f32 out; (b) (16, 4, 2^23) and (64, 3, 100,000).
+
+At each shape the designs' outputs are first held equal bit for bit;
+then, in turns (earlier, this, this, earlier), every call after an L2
+flush and timed by CUDA events: the device time of the launches alone
+(the card kept busy while the host enqueues them; select_rows' count and
+gather launches timed apart, the host read of its totals between them
+left out), and the wrapper's time. The bound is chip_smoke.py's. Prints
+a line per shape (first k7_peak.cu's peak rates of the b1 tensor-core
+product and of the CUDA cores' AND + popcount), then the card's name and
+power limit, then every time as one JSON object on the last line.
+Imports nothing of JAX; writes only under .smoke/ab/.
 """
 
-import ctypes as ct
+import importlib.util
 import json
 import os
 import shutil
 import sys
+import time
 
 import chip_smoke as smoke
 
@@ -39,126 +55,21 @@ WORK = os.path.join(smoke.WORK, "ab")
 N = 10                                  # calls per timing
 
 
-def stream_ptr():
-    import torch
-    return torch.cuda.current_stream().cuda_stream
-
-
-class EarlierDesign:
-    """The earlier select_rows and masked_median, built from `csrc` and
-    called as their wrappers called them, input checks included."""
-
-    KEYS = ("row", "any_snp", "cum", "total", "con", "var", "morphia",
-            "cls", "cryptic", "present")
-
-    def __init__(self, csrc):
-        from instrain_tpu_torch import build
-        src = os.path.join(csrc, "compact.cu")
-        hdr = os.path.join(csrc, "segments.cuh")
-        nvcc = build._nvcc()
-        smoke.check(nvcc is not None, "nvcc not found")
-        smoke.check(os.path.exists(src) and os.path.exists(hdr),
-                    f"no compact.cu and segments.cuh in {csrc}")
-
-        def stages(out):
-            return [[[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                      "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-                      "-I", csrc, "-o", out, src]]]
-
-        lib = ct.CDLL(build.build_library("instrain_compact_earlier", [src],
-                                          [hdr], stages))
-        P, I, I64 = ct.c_void_p, ct.c_int, ct.c_int64
-        seg = [P, I, I64]                 # segment table, S, tiles
-        lib.instrain_rows_count.restype = I
-        lib.instrain_rows_count.argtypes = [P, P, I, I64] + seg + [P] * 6
-        lib.instrain_rows_gather.restype = I
-        lib.instrain_rows_gather.argtypes = ([P] * 10 + [I, I64] + seg +
-                                             [P, P, I, I] + [P] * 8)
-        lib.instrain_masked_median.restype = I
-        lib.instrain_masked_median.argtypes = [P] * 5 + [I, I64, P, I, P, P]
-        self.lib = lib
-
-    def count(self, full, seg):
-        import torch
-        from instrain_tpu_torch.kernels import cuda_compact as CC
-        M, L, dev = CC._check_full(full, self.KEYS, "select_rows")
-        CC._check_seg(full["total"], seg, "select_rows")
-        job = [torch.empty(seg.n_tiles, dtype=torch.int32, device=dev),
-               torch.empty(seg.n_tiles, dtype=torch.int32, device=dev),
-               torch.empty((2, seg.S + 1), dtype=torch.int32, device=dev),
-               torch.empty(2, dtype=torch.int32, device=dev)]
-        rc = self.lib.instrain_rows_count(
-            full["row"].data_ptr(), full["any_snp"].data_ptr(), M, L,
-            seg.table_ptr(), seg.S, seg.n_tiles, job[0].data_ptr(),
-            job[1].data_ptr(), job[3].data_ptr(), job[2][0].data_ptr(),
-            job[2][1].data_ptr(), stream_ptr())
-        smoke.check(rc == 0, f"earlier rows_count: CUDA error {rc}")
-        return job
-
-    def gather(self, full, seg, job, n_rows, n_pos):
-        import torch
-        M, L = full["total"].shape
-        dev = full["total"].device
-        r_i32 = torch.empty((6, n_rows), dtype=torch.int32, device=dev)
-        r_total = torch.empty(n_rows, dtype=torch.int64, device=dev)
-        r_codes = torch.empty((4, n_rows), dtype=torch.int8, device=dev)
-        r_cryptic = torch.empty(n_rows, dtype=torch.bool, device=dev)
-        l_pos = torch.empty(n_pos, dtype=torch.int32, device=dev)
-        l_cum = torch.empty((M, 4, n_pos), dtype=torch.int32, device=dev)
-        l_present = torch.empty((M, n_pos), dtype=torch.bool, device=dev)
-        if n_rows or n_pos:
-            rc = self.lib.instrain_rows_gather(
-                *[full[k].data_ptr() for k in self.KEYS], M, L,
-                seg.table_ptr(), seg.S, seg.n_tiles, job[0].data_ptr(),
-                job[1].data_ptr(), n_rows, n_pos, r_i32.data_ptr(),
-                r_total.data_ptr(), r_codes.data_ptr(),
-                r_cryptic.data_ptr(), l_pos.data_ptr(), l_cum.data_ptr(),
-                l_present.data_ptr(), stream_ptr())
-            smoke.check(rc == 0, f"earlier rows_gather: CUDA error {rc}")
-        rows = dict(pos=r_i32[0], mm_idx=r_i32[1], A=r_i32[2], C=r_i32[3],
-                    T=r_i32[4], G=r_i32[5], total=r_total, con=r_codes[0],
-                    var=r_codes[1], morphia=r_codes[2], cls=r_codes[3],
-                    cryptic=r_cryptic, n_rows=n_rows, seg_start=job[2][0])
-        linkage = dict(pos=l_pos, cum=l_cum, present=l_present, n_pos=n_pos,
-                       seg_start=job[2][1])
-        return rows, linkage
-
-    def select_rows(self, full, seg):
-        job = self.count(full, seg)
-        n_rows, n_pos = (int(x) for x in job[3].tolist())   # 8-byte D2H
-        return self.gather(full, seg, job, n_rows, n_pos)
-
-    def masked_median(self, total, clon_f, clonR_f, counted, rarefied, seg):
-        import torch
-        from instrain_tpu_torch.kernels import cuda_compact as CC
-        from instrain_tpu_torch.kernels import sitestats as S
-        from instrain_tpu_torch.kernels.cuda_sitestats import _require
-        name = "masked_median"
-        _require(total.dim() == 2 and total.dtype == torch.int64, name,
-                 "total must be int64 [M, L]")
-        M, L = total.shape
-        _require(M >= 1 and L >= 1 and M * L < 2 ** 31, name,
-                 f"[M, L] = [{M}, {L}] out of range")
-        CC._check_seg(total, seg, name)
-        _require(seg.S * M < 2 ** 31, name, "too many (segment, mm) rows")
-        for t, dt, shape in ((clon_f, torch.float32, (M, L)),
-                             (clonR_f, torch.float32, (M, L)),
-                             (counted, torch.int64, (seg.S, M)),
-                             (rarefied, torch.int64, (seg.S, M))):
-            _require(t.dtype == dt and tuple(t.shape) == shape, name,
-                     f"expected {dt} {shape}, got {t.dtype} "
-                     f"{tuple(t.shape)}")
-        for t in (total, clon_f, clonR_f, counted, rarefied):
-            _require(t.device == total.device, name, "inputs on two devices")
-            _require(t.is_contiguous(), name, "inputs must be contiguous")
-        out = torch.empty((3, seg.S, M), dtype=torch.float32,
-                          device=total.device)
-        rc = self.lib.instrain_masked_median(
-            total.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
-            counted.data_ptr(), rarefied.data_ptr(), M, L, seg.table_ptr(),
-            seg.S, out.data_ptr(), stream_ptr())
-        smoke.check(rc == 0, f"earlier masked_median: CUDA error {rc}")
-        return dict(zip(S.AGG_MEDIAN, out))
+def load_earlier(pkg_dir):
+    """The earlier package at pkg_dir, imported as `instrain_earlier`."""
+    smoke.check(os.path.exists(os.path.join(pkg_dir, "__init__.py")),
+                f"no package at {pkg_dir}")
+    spec = importlib.util.spec_from_file_location(
+        "instrain_earlier", os.path.join(pkg_dir, "__init__.py"),
+        submodule_search_locations=[pkg_dir])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["instrain_earlier"] = mod
+    spec.loader.exec_module(mod)
+    import instrain_earlier.kernels.cuda_compact as ecc
+    import instrain_earlier.kernels.cuda_compare as ecmp
+    import instrain_earlier.kernels.cuda_sitestats as ecs
+    ecs.load_kernels()
+    return ecc, ecmp
 
 
 def captured_shapes():
@@ -178,64 +89,165 @@ def captured_shapes():
             for n, *_ in smoke.MAIN_CASES]
 
 
-def ab_shape(torch, earlier, name, full, seg, card):
-    """Both designs of both kernels at one shape: checked equal, then
-    timed in turns."""
+def in_turns(torch, designs, busy):
+    """{design: mean ms} of each design's calls, taken earlier, this,
+    this, earlier; designs[d] is a list of functions each timed alone."""
+    t = {}
+    for d in ("earlier", "this", "this", "earlier"):
+        t.setdefault(d, []).append(sum(
+            smoke.cold_ms(torch, f, N, busy=busy) for f in designs[d]))
+    return {d: sum(v) / len(v) for d, v in t.items()}
+
+
+def report(kname, dev, wrap, bnd):
+    r = {"this_device_ms": dev["this"], "earlier_device_ms": dev["earlier"],
+         "this_ms": wrap["this"], "earlier_ms": wrap["earlier"],
+         "bound_ms": bnd[0], "bound_by": bnd[1]}
+    text = (f"{kname} device {r['this_device_ms']:.4f} ms (earlier "
+            f"{r['earlier_device_ms']:.4f}, "
+            f"{r['earlier_device_ms'] / r['this_device_ms']:.2f}x), wrapper "
+            f"{r['this_ms']:.4f} ms (earlier {r['earlier_ms']:.4f}, "
+            f"{r['earlier_ms'] / r['this_ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r, text
+
+
+def ab_compact(torch, ecc, name, full, seg, card):
+    """select_rows and mm_aggregates of both designs at one shape: checked
+    equal, then timed in turns."""
     from instrain_tpu_torch.kernels import cuda_compact as CC
     M, L = full["total"].shape
-    agg, cf, rf = CC.mm_aggregates(full, seg)
-    med_args = (full["total"], cf, rf, agg["counted"], agg["rarefied"], seg)
     rows, link = CC.select_rows(full, seg)
-    med = CC.masked_median(*med_args)
-    old_rows, old_link = earlier.select_rows(full, seg)
+    agg, cf, rf = CC.mm_aggregates(full, seg)
+    old_rows, old_link = ecc.select_rows(full, seg)
+    old_agg, old_cf, old_rf = ecc.mm_aggregates(full, seg)
     torch.cuda.synchronize()
     smoke.compare_exact({"rows": rows, "linkage": link},
                         {"rows": old_rows, "linkage": old_link},
                         f"select_rows, {name}: this design vs the earlier")
-    smoke.compare_exact(med, earlier.masked_median(*med_args),
-                        f"masked_median, {name}: this design vs the earlier")
+    smoke.compare_exact({"agg": agg, "clon_f": cf, "clonR_f": rf},
+                        {"agg": old_agg, "clon_f": old_cf,
+                         "clonR_f": old_rf},
+                        f"mm_aggregates, {name}: this design vs the earlier")
     n_rows, n_pos = rows["n_rows"], link["n_pos"]
-    job, old_job = CC._rows_count(full, seg), earlier.count(full, seg)
+    job, old_job = CC._rows_count(full, seg), ecc._rows_count(full, seg)
     torch.cuda.synchronize()
-    # per design: (the launches, each timed alone; the wrapper)
-    kernels = {
-        "select_rows": {
-            "earlier": ([lambda: earlier.count(full, seg),
-                         lambda: earlier.gather(full, seg, old_job, n_rows,
-                                                n_pos)],
-                        lambda: earlier.select_rows(full, seg)),
-            "this": ([lambda: CC._rows_count(full, seg),
-                      lambda: CC._rows_gather(job, n_rows, n_pos)],
-                     lambda: CC.select_rows(full, seg))},
-        "masked_median": {
-            "earlier": ([lambda: earlier.masked_median(*med_args)],
-                        lambda: earlier.masked_median(*med_args)),
-            "this": ([lambda: CC.masked_median(*med_args)],
-                     lambda: CC.masked_median(*med_args))}}
-    bounds = {"select_rows": smoke.select_rows_bound(full, rows, link),
-              "masked_median": smoke.bound(smoke.nbytes(med_args[:5], med))}
-    res = {}
-    for kname, designs in kernels.items():
-        t = {}
-        for d in ("earlier", "this", "this", "earlier"):
-            launches, wrapper = designs[d]
-            dev = sum(smoke.cold_ms(torch, f, N, busy=True)
-                      for f in launches)
-            t.setdefault(f"{d}_device_ms", []).append(dev)
-            t.setdefault(f"{d}_ms", []).append(smoke.cold_ms(torch, wrapper,
-                                                             N))
-        r = res[kname] = {k: sum(v) / len(v) for k, v in t.items()}
-        r.update(bound_ms=bounds[kname][0], bound_by=bounds[kname][1])
+    keys = ("total", "clon", "clonR", "row", "morphia", "cls", "present")
+    res, texts = {}, []
+    for kname, launches, wrappers, bnd in (
+            ("select_rows",
+             {"earlier": [lambda: ecc._rows_count(full, seg),
+                          lambda: ecc._rows_gather(old_job, n_rows, n_pos)],
+              "this": [lambda: CC._rows_count(full, seg),
+                       lambda: CC._rows_gather(job, n_rows, n_pos)]},
+             {"earlier": [lambda: ecc.select_rows(full, seg)],
+              "this": [lambda: CC.select_rows(full, seg)]},
+             smoke.select_rows_bound(full, rows, link)),
+            ("mm_aggregates",
+             {"earlier": [lambda: ecc.mm_aggregates(full, seg)],
+              "this": [lambda: CC.mm_aggregates(full, seg)]},
+             {"earlier": [lambda: ecc.mm_aggregates(full, seg)],
+              "this": [lambda: CC.mm_aggregates(full, seg)]},
+             smoke.bound(smoke.nbytes([full[k] for k in keys], agg, cf,
+                                      rf)))):
+        res[kname], text = report(kname, in_turns(torch, launches, True),
+                                  in_turns(torch, wrappers, False), bnd)
+        texts.append(text)
     smoke.log("ab", f"{name} (M={M}, {seg.S} segment(s), {L} positions, "
                     f"{n_rows} SNP rows, {n_pos} SNV positions) on {card}, "
-                    f"cold L2, outputs equal bit for bit: " + "; ".join(
-                        f"{k} device {v['this_device_ms']:.4f} ms (earlier "
-                        f"{v['earlier_device_ms']:.4f}, "
-                        f"{v['earlier_device_ms'] / v['this_device_ms']:.2f}"
-                        f"x), wrapper {v['this_ms']:.4f} ms (earlier "
-                        f"{v['earlier_ms']:.4f}), bound {v['bound_ms']:.4f} "
-                        f"ms ({v['bound_by']})" for k, v in res.items()))
+                    f"cold L2, outputs equal bit for bit: " +
+                    "; ".join(texts))
     return res
+
+
+def ab_overlap(torch, ecmp, card):
+    """K7 of both designs: the study's group, (16, 4, 2^23) and
+    (64, 3, 100,000)."""
+    import numpy as np
+    from instrain_tpu_torch.compare import pipeline as CP
+    from instrain_tpu_torch.kernels import compare as K
+    from instrain_tpu_torch.kernels import cuda_compare as CC
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    res = {}
+    for shapes in (smoke.STUDY_GROUP, [(16, 4, 1 << 23)],
+                   [(64, 3, 100_000)]):
+        words = smoke.group_words(rng, shapes)
+        plan, buf, dbuf = smoke.group_on_card(torch, words)
+        per = [torch.from_numpy(w.view(np.int64)).to(dev) for w in words]
+        got = K.split_counts(CC.overlap_counts_group(dbuf, plan).cpu()
+                             .numpy(), plan)
+        for (b, s), t in zip(got, per):
+            ob, os_ = ecmp.overlap_counts(t)
+            smoke.check(np.array_equal(b, ob.cpu().numpy()) and
+                        np.array_equal(s, os_.cpu().numpy()),
+                        f"overlap_counts {shapes[0]}: the designs differ")
+        lengths = [L for _, _, L in shapes]
+        launches = {"earlier": [lambda: [ecmp.overlap_counts(t)
+                                         for t in per]],
+                    "this": [lambda: CC.overlap_counts_group(dbuf, plan)]}
+        dev_ms = in_turns(torch, launches, True)
+        wrap_ms = in_turns(torch, launches, False)
+
+        def earlier_copies():
+            # the earlier pipeline: per scaffold the words to the card, the
+            # launch, the counts back
+            for w in words:
+                t = torch.from_numpy(w.view(np.int64)).to(dev)
+                b, s = ecmp.overlap_counts(t)
+                b.cpu(), s.cpu()
+
+        copies_ms = in_turns(torch, {
+            "earlier": [earlier_copies],
+            "this": [lambda: CP.group_overlap_counts(words, lengths,
+                                                     "device", dev)]},
+            False)
+        bnd = smoke.overlap_bound(words, plan)
+        key = "study group" if shapes is smoke.STUDY_GROUP else \
+            str(shapes[0])
+        r, text = report("overlap_counts", dev_ms, wrap_ms, bnd)
+        r.update(this_copies_ms=copies_ms["this"],
+                 earlier_copies_ms=copies_ms["earlier"])
+        text += (f"; with the copies {copies_ms['this']:.4f} ms (earlier "
+                 f"{copies_ms['earlier']:.4f}, "
+                 f"{copies_ms['earlier'] / copies_ms['this']:.2f}x)")
+        if shapes is smoke.STUDY_GROUP:
+            N_, _, L = shapes[0]
+            bits = torch.from_numpy(np.concatenate(
+                [K.unpack_words(w, L) for w in words], axis=1)).to(dev)
+            x = bits.to(torch.bfloat16).permute(1, 0, 2).contiguous()
+            del bits
+            xt = x.transpose(1, 2)
+            lib = smoke.cold_ms(torch, lambda: torch.bmm(
+                x, xt, out_dtype=torch.float32), N)
+            lib2 = smoke.cold_ms(torch, lambda: torch.bmm(
+                x, xt, out_dtype=torch.float32), N)
+            r["library_ms"] = (lib + lib2) / 2
+            text += f"; bf16 bmm of the group {r['library_ms']:.4f} ms"
+            del x, xt
+        res[key] = r
+        smoke.log("ab", f"K7 at {key} ({len(shapes)} x {shapes[0]}, "
+                        f"{plan.n_blocks} blocks) on {card}, cold L2, "
+                        f"counts equal: {text}")
+    return res
+
+
+def peak_rates():
+    """k7_peak.cu's lines: the b1 tensor-core product's and the CUDA cores'
+    AND + popcount peak rates, and its fragment layout check."""
+    import subprocess
+    from instrain_tpu_torch import build
+    os.makedirs(WORK, exist_ok=True)
+    exe = os.path.join(WORK, "k7_peak")
+    subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", exe, os.path.join(smoke.ROOT, "k7_peak.cu")],
+                   check=True)
+    res = subprocess.run([exe], capture_output=True, text=True, timeout=120)
+    smoke.check(res.returncode == 0 and "0 of 128 wrong" in res.stdout,
+                f"k7_peak failed: {res.stdout} {res.stderr}")
+    for line in res.stdout.splitlines():
+        smoke.log("peak", line)
+    return res.stdout
 
 
 def main():
@@ -248,13 +260,17 @@ def main():
               "needs an NVIDIA GPU", flush=True)
         return 1
     card = smoke.nvidia_smi_line()
+    t0 = time.perf_counter()
     smoke.phase_build()
-    earlier = EarlierDesign(os.path.abspath(sys.argv[1]))
+    ecc, ecmp = load_earlier(os.path.abspath(sys.argv[1]))
+    smoke.log("ab", f"both designs built: {time.perf_counter() - t0:.2f} s")
     results = {}
     try:
+        results["peak"] = peak_rates()
+        results["overlap_counts"] = ab_overlap(torch, ecmp, card)
         for name, full, seg in captured_shapes() + smoke.synthetic_shapes(
                 torch):
-            results[name] = ab_shape(torch, earlier, name, full, seg, card)
+            results[name] = ab_compact(torch, ecc, name, full, seg, card)
     except smoke.SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

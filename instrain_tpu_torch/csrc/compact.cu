@@ -9,8 +9,9 @@
 // need: per segment the SNP rows, per-mm aggregates, the linkage count
 // profiles at SNV positions and the three medians per mm level.
 //
-// Position-tiled kernels (C1, C2) run one block per tile of 256 positions
-// of one segment, so a block's reductions and scans never mix scaffolds;
+// Position-tiled kernels (C1, C2) run one block per tile of 256 (C1) or
+// 2048 (C2) positions of one segment, so a block's reductions and scans
+// never mix scaffolds;
 // positions are counted from the segment's start, as the JAX batch engine
 // counts them per scaffold.
 //
@@ -43,17 +44,39 @@
 //     writing up to M records M apart, with byte loads, and one block
 //     scanned the tiles serially: 1.5982 ms at a 52 x 40 kb chunk (M = 8)
 //     on an NVIDIA H100 80GB HBM3 at 700 W, 26 % of its bytes bound.
-//  C2 mm_aggregates — one thread per position walks m = 0..M-1 and keeps
-//     three forward-fill states in registers (clon, clonR, and the packed
-//     morphia << 3 | class code over `row`), in place of the TPU's
-//     log2(M) doubling passes. Per mm level the block reduces its values
-//     with warp shuffles and shared memory and then adds them into the
-//     [S, M] aggregates with one global atomic per block and quantity. The
-//     f64 sums are exact in any order (each value is a multiple of 2^-27
-//     in [0.125, 1], and a segment has far fewer than 2^26 positions), so
-//     f64 atomicAdd gives the JAX sums bit for bit. It also writes the
-//     forward-filled clon and clonR (+inf where nothing is set) to f32
-//     scratch for C3.
+//  C2 mm_aggregates — one block per big tile of 2048 positions of one
+//     segment, each of its 256 threads taking kAggPer = 8 of them, 256
+//     apart (so that every load and store of a warp covers consecutive
+//     cells: rows at m * Ltot and segment starts are not aligned, and a
+//     warp's 32 consecutive cells need no masking but the segment's end). Each thread walks m =
+//     0..M-1 and keeps, per position, three forward-fill states in
+//     registers (clon, clonR, and the packed morphia << 3 | class code over
+//     `row`), in place of the TPU's log2(M) doubling passes; it writes the
+//     filled clon and clonR (+inf where nothing is set) to f32 scratch for
+//     C3. Per mm level a thread sums its positions' parts in registers: the
+//     nine 0/1 counts (at most 256 a warp) packed three to a 32-bit word
+//     at 10 bits each and folded across the warp by one __reduce_add_sync
+//     per word; the two integer and two f64 sums by 64-bit shuffles. The
+//     warps' parts meet in shared memory (double-buffered by level: one
+//     barrier a level), and one thread per quantity adds the block's sum
+//     into the [S, M] aggregates with one global atomic: one per (block,
+//     level, quantity) over 2048 positions. A chunk of fewer than two
+//     big tiles an SM (one 250 kb segment: 123) takes one position a
+//     thread on the table's 256-position tiles instead (the wrapper's
+//     aggregates_per_thread), so that enough blocks hide the levels'
+//     latency. The entry point zeroes the aggregates, one buffer, with
+//     one memset. The f64 sums are exact in
+//     any order and grouping (each value is a multiple of 2^-27 in
+//     [0.125, 1], and a segment has far fewer than 2^26 positions, so every
+//     partial sum is exact), so f64 atomicAdd gives the JAX sums bit for
+//     bit; each position is still one term. Bound: the bytes of the seven
+//     inputs and two outputs, 28 a cell.
+//     The previous design: one thread per position and a block of 256
+//     positions, whose reductions per level (ten 64-bit and two f64 warp
+//     sums, 120 shuffles a warp, and up to 13 atomics a block) made it
+//     instruction-bound, with three zero-fill launches in the wrapper:
+//     0.4322 ms at a 52 x 40 kb chunk (M = 8) on an NVIDIA H100 80GB HBM3
+//     at 700 W, 32 % of its bytes bound.
 //  C3 masked_median — the exact (k1, k2)-th smallest of every (segment,
 //     mm level, value set) row, k2 = k1 or k1 + 1, by a radix select on
 //     32-bit keys: coverage as f32 (one conversion per value per read) or
@@ -117,6 +140,12 @@ constexpr int kLongThreads = 512;             // C3, long rows
 constexpr int kUnroll = 4;                    // C3: 16-byte loads in flight
 constexpr uint32_t kInfBits = 0x7F800000u;
 constexpr int kNumInt = 10;                   // integer aggregates, C2
+constexpr int kAggThreads = 256;              // C2
+constexpr int kAggWarps = kAggThreads / 32;
+constexpr int kAggPer = 8;                    // C2: positions per thread
+static_assert(kAggThreads == instrain::kTile &&
+              kAggThreads * kAggPer == instrain::kBigTile,
+              "C2's blocks are the table's tiles or big tiles");
 constexpr int8_t kSNS = 0, kConSNV = 2, kPopSNV = 3;
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
@@ -464,7 +493,31 @@ __global__ void __launch_bounds__(kThreads) rows_gather_kernel(
 
 // ------------------------------------------------------------------ C2
 
-__global__ void mm_aggregates_kernel(
+// Per thread and mm level, what its kAggPer positions add to the block's
+// aggregates: the 64-bit sums, and the nine 0/1 counts (each at most
+// kAggPer a thread, 32 * kAggPer a warp: 10 bits) packed three to a word
+struct AggPart {
+    unsigned long long sum, sumsq;
+    double f0, f1;
+    uint32_t c[3];   // nonzeros, counted, rarefied | div_sites, sns, snv |
+                     // con_snps, pop_snps, present; 10 bits each
+};
+
+// C2's tiles: PER positions a thread, kAggThreads * PER a block, on the
+// segment table's tiles (PER = 1: kTile) or big tiles (PER = kAggPer)
+template <int PER>
+__device__ __forceinline__ int64_t agg_tile0(const Segments& g, int s) {
+    return PER == 1 ? instrain::seg_tile0(g, s) : instrain::seg_btile0(g, s);
+}
+
+template <int PER>
+__device__ __forceinline__ int agg_segment(const Segments& g, int64_t t) {
+    return PER == 1 ? instrain::segment_of_tile(g, t)
+                    : instrain::segment_of_btile(g, t);
+}
+
+template <int PER>
+__global__ void __launch_bounds__(kAggThreads) mm_aggregates_kernel(
         const int64_t* __restrict__ total, const float* __restrict__ clon,
         const float* __restrict__ clonR, const bool* __restrict__ row,
         const int8_t* __restrict__ morphia, const int8_t* __restrict__ cls,
@@ -473,70 +526,105 @@ __global__ void mm_aggregates_kernel(
         double* __restrict__ agg_f,               // [2, S, M], zeroed
         bool* __restrict__ mm_active,             // [S, M], zeroed
         float* __restrict__ clon_f, float* __restrict__ clonR_f) {
-    __shared__ unsigned long long s_i[kWarps][kNumInt];
-    __shared__ double s_f[kWarps][2];
-    const TilePos tp = tile_position(g, blockIdx.x);
-    const int64_t p = tp.p;
-    const bool valid = tp.p_local < tp.len;
-    const int64_t SM = (int64_t)g.S * M, sm0 = (int64_t)tp.s * M;
+    // the warps' parts, double-buffered by mm level: one barrier a level
+    __shared__ unsigned long long s_l[2][kAggWarps][2];
+    __shared__ double s_d[2][kAggWarps][2];
+    __shared__ uint32_t s_c[2][kAggWarps][3];
+    const int s = agg_segment<PER>(g, blockIdx.x);
+    const int64_t off = instrain::seg_off(g, s);
+    const int64_t len = instrain::seg_off(g, s + 1) - off;
+    // this thread's positions within the segment: p0 + v * kAggThreads
+    const int64_t p0 = (blockIdx.x - agg_tile0<PER>(g, s)) *
+                       (kAggThreads * PER) + threadIdx.x;
+    const int64_t SM = (int64_t)g.S * M, sm0 = (int64_t)s * M;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const float inf = __uint_as_float(kInfBits);
-    float cf = inf, rf = inf;              // filled clon / clonR
-    int enc = -1;                          // filled morphia << 3 | cls
+    float cf[PER], rf[PER];                // filled clon / clonR
+    int enc[PER];                          // filled morphia << 3 | cls
+#pragma unroll
+    for (int v = 0; v < PER; ++v) {
+        cf[v] = inf;
+        rf[v] = inf;
+        enc[v] = -1;
+    }
 
     for (int m = 0; m < M; ++m) {
-        const int64_t cell = (int64_t)m * L + p;
-        unsigned long long v[kNumInt];
-        double f[2] = {0.0, 0.0};
-        bool pr = false;
-        for (int q = 0; q < kNumInt; ++q) v[q] = 0;
-        if (valid) {
+        const int64_t base = (int64_t)m * L + off;
+        AggPart a = {0ull, 0ull, 0.0, 0.0, {0u, 0u, 0u}};
+#pragma unroll
+        for (int v = 0; v < PER; ++v) {
+            const int64_t p = p0 + v * kAggThreads;
+            if (p >= len) continue;
+            const int64_t cell = base + p;
             const int64_t t = total[cell];
             const float c = clon[cell], r = clonR[cell];
-            if (c == c) cf = c;            // set where not NaN
-            if (r == r) rf = r;
-            if (row[cell]) enc = ((int)morphia[cell] << 3) | (int)cls[cell];
-            pr = present[cell];
-            clon_f[cell] = cf;
-            clonR_f[cell] = rf;
-            const bool has_c = cf != inf, has_r = rf != inf;
-            const bool have_row = enc >= 0;
-            const int mor = enc >> 3, k = enc & 7;
-            v[0] = (unsigned long long)t;
-            v[1] = (unsigned long long)(t * t);
-            v[2] = t > 0;
-            v[3] = has_c;
-            v[4] = has_r;
-            v[5] = have_row;
-            v[6] = have_row && mor == 1;
-            v[7] = have_row && mor > 1;
-            v[8] = have_row && (k == kSNS || k == kConSNV || k == kPopSNV);
-            v[9] = have_row && (k == kSNS || k == kPopSNV);
-            if (has_c) f[0] = (double)cf;
-            if (has_r) f[1] = (double)rf;
+            const bool rw = row[cell];
+            const int code = ((int)morphia[cell] << 3) | (int)cls[cell];
+            const bool pr = present[cell];
+            if (c == c) cf[v] = c;         // set where not NaN
+            if (r == r) rf[v] = r;
+            if (rw) enc[v] = code;
+            clon_f[cell] = cf[v];
+            clonR_f[cell] = rf[v];
+            const bool has_c = cf[v] != inf, has_r = rf[v] != inf;
+            const bool have_row = enc[v] >= 0;
+            const int mor = enc[v] >> 3, k = enc[v] & 7;
+            a.sum += (unsigned long long)t;
+            a.sumsq += (unsigned long long)(t * t);
+            if (has_c) a.f0 += (double)cf[v];
+            if (has_r) a.f1 += (double)rf[v];
+            a.c[0] += (uint32_t)(t > 0) | ((uint32_t)has_c << 10) |
+                      ((uint32_t)has_r << 20);
+            a.c[1] += (uint32_t)have_row |
+                      ((uint32_t)(have_row && mor == 1) << 10) |
+                      ((uint32_t)(have_row && mor > 1) << 20);
+            a.c[2] += (uint32_t)(have_row && (k == kSNS || k == kConSNV ||
+                                              k == kPopSNV)) |
+                      ((uint32_t)(have_row && (k == kSNS || k == kPopSNV))
+                       << 10) |
+                      ((uint32_t)pr << 20);
         }
-        for (int q = 0; q < kNumInt; ++q) v[q] = warp_sum(v[q]);
-        f[0] = warp_sum(f[0]);
-        f[1] = warp_sum(f[1]);
+        // the warp's parts: one REDUX per packed word, 64-bit shuffles for
+        // the sums alone
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+            a.c[q] = __reduce_add_sync(0xffffffffu, a.c[q]);
+        a.sum = warp_sum(a.sum);
+        a.sumsq = warp_sum(a.sumsq);
+        a.f0 = warp_sum(a.f0);
+        a.f1 = warp_sum(a.f1);
+        const int buf = m & 1;
         if (lane == 0) {
-            for (int q = 0; q < kNumInt; ++q) s_i[warp][q] = v[q];
-            s_f[warp][0] = f[0];
-            s_f[warp][1] = f[1];
+            s_l[buf][warp][0] = a.sum;
+            s_l[buf][warp][1] = a.sumsq;
+            s_d[buf][warp][0] = a.f0;
+            s_d[buf][warp][1] = a.f1;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) s_c[buf][warp][q] = a.c[q];
         }
-        const int active = __syncthreads_or(pr);    // also the barrier
-        if (threadIdx.x < kNumInt) {
-            unsigned long long s = 0;
-            for (int w = 0; w < kWarps; ++w) s += s_i[w][threadIdx.x];
-            if (s) atomicAdd(agg_i + threadIdx.x * SM + sm0 + m, s);
-        } else if (threadIdx.x < kNumInt + 2) {
-            const int q = threadIdx.x - kNumInt;
-            double s = 0.0;
-            for (int w = 0; w < kWarps; ++w) s += s_f[w][q];
-            if (s != 0.0) atomicAdd(agg_f + q * SM + sm0 + m, s);
-        } else if (threadIdx.x == kNumInt + 2 && active) {
-            mm_active[sm0 + m] = true;
+        __syncthreads();
+        // one thread per quantity: the block's sum, one global atomic
+        const int q = threadIdx.x;
+        if (q < 2) {
+            unsigned long long x = 0;
+            for (int w = 0; w < kAggWarps; ++w) x += s_l[buf][w][q];
+            if (x) atomicAdd(agg_i + q * SM + sm0 + m, x);
+        } else if (q < kNumInt + 1) {        // the nine counts
+            const int word = (q - 2) / 3, shift = 10 * ((q - 2) % 3);
+            unsigned long long x = 0;
+            for (int w = 0; w < kAggWarps; ++w)
+                x += (s_c[buf][w][word] >> shift) & 1023u;
+            if (q < kNumInt) {
+                if (x) atomicAdd(agg_i + q * SM + sm0 + m, x);
+            } else if (x) {                  // present: mm_active
+                mm_active[sm0 + m] = true;
+            }
+        } else if (q < kNumInt + 3) {
+            const int f = q - kNumInt - 1;
+            double x = 0.0;
+            for (int w = 0; w < kAggWarps; ++w) x += s_d[buf][w][f];
+            if (x != 0.0) atomicAdd(agg_f + f * SM + sm0 + m, x);
         }
-        __syncthreads();                   // before s_i / s_f are reused
     }
 }
 
@@ -1013,19 +1101,31 @@ extern "C" int instrain_rows_gather(
     return (int)cudaGetLastError();
 }
 
+// agg: one buffer of the [kNumInt, S, M] integer aggregates, then the
+// [2, S, M] f64 sums, then [S, M] mm_active, zeroed here. per: positions
+// a thread, 1 (n_blocks: the table's tiles) or kAggPer (its big tiles)
 extern "C" int instrain_mm_aggregates(
         const void* total, const void* clon, const void* clonR,
         const void* row, const void* morphia, const void* cls,
         const void* present, int M, int64_t L, const void* seg_table, int S,
-        int64_t n_tiles, void* agg_i, void* agg_f, void* mm_active,
-        void* clon_f, void* clonR_f, void* stream) {
-    mm_aggregates_kernel<<<(unsigned)n_tiles, kThreads, 0,
-                           (cudaStream_t)stream>>>(
+        int per, int64_t n_blocks, void* agg, void* clon_f, void* clonR_f,
+        void* stream) {
+    if (per != 1 && per != kAggPer) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int64_t SM = (int64_t)S * M;
+    cudaError_t e = cudaMemsetAsync(agg, 0, (size_t)SM * (8 * (kNumInt + 2)
+                                                          + 1), st);
+    if (e != cudaSuccess) return (int)e;
+    unsigned long long* agg_i = (unsigned long long*)agg;
+    double* agg_f = (double*)(agg_i + kNumInt * SM);
+    auto kernel = per == 1 ? mm_aggregates_kernel<1>
+                           : mm_aggregates_kernel<kAggPer>;
+    kernel<<<(unsigned)n_blocks, kAggThreads, 0, st>>>(
         (const int64_t*)total, (const float*)clon, (const float*)clonR,
         (const bool*)row, (const int8_t*)morphia, (const int8_t*)cls,
         (const bool*)present, M, L, instrain::segments(seg_table, S, L),
-        (unsigned long long*)agg_i, (double*)agg_f, (bool*)mm_active,
-        (float*)clon_f, (float*)clonR_f);
+        agg_i, agg_f, (bool*)(agg_f + 2 * SM), (float*)clon_f,
+        (float*)clonR_f);
     return (int)cudaGetLastError();
 }
 

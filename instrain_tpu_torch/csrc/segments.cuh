@@ -3,15 +3,17 @@
 // per-scaffold offsets and keys; a single scaffold is a chunk of one
 // segment. Nothing is padded to a common length.
 //
-// The table is one int64 array of 3 * (S + 1) entries:
-//   off[0..S]    position offsets (off[S] = Ltot)
-//   tile0[0..S]  the first tile of each segment (tile0[S] = tiles in all)
-//   key[0..S-1]  the segment's uint32[2] key as (k0 << 32) | k1
+// The table is one int64 array of 4 * (S + 1) entries:
+//   off[0..S]     position offsets (off[S] = Ltot)
+//   tile0[0..S]   the first tile of each segment (tile0[S] = tiles in all)
+//   key[0..S-1]   the segment's uint32[2] key as (k0 << 32) | k1, then 0
+//   btile0[0..S]  the first big tile (kBigTile positions) of each segment
 // A chunk of one segment needs no table (a null pointer): the segment is
 // the whole axis, under the key passed beside it, so a one-scaffold launch
 // copies nothing to the device first.
-// Position-tiled kernels launch one block per tile of kTile positions;
-// a tile never spans two segments, so a block reduces into one segment.
+// Position-tiled kernels launch one block per tile of kTile positions, or
+// of kBigTile (mm_aggregates); a tile never spans two segments, so a
+// block reduces into one segment.
 
 #pragma once
 
@@ -20,6 +22,7 @@
 namespace instrain {
 
 constexpr int kTile = 256;
+constexpr int kBigTile = 2048;
 
 struct Segments {
     const int64_t* table;          // null: one segment over [0, L)
@@ -53,6 +56,22 @@ __device__ __forceinline__ int segment_of_tile(const Segments& g,
     while (lo < hi) {
         const int mid = (lo + hi + 1) >> 1;
         if (seg_tile0(g, mid) <= tile) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+}
+
+__device__ __forceinline__ int64_t seg_btile0(const Segments& g, int s) {
+    return g.table ? g.table[3 * (g.S + 1) + s]
+                   : (s == 0 ? 0 : (g.L + kBigTile - 1) / kBigTile);
+}
+
+// the segment holding big tile `tile`: the last s with btile0[s] <= tile
+__device__ __forceinline__ int segment_of_btile(const Segments& g,
+                                                int64_t tile) {
+    int lo = 0, hi = g.S - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (seg_btile0(g, mid) <= tile) lo = mid; else hi = mid - 1;
     }
     return lo;
 }

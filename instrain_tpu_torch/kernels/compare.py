@@ -16,13 +16,20 @@ and with no bound on L.
   mask_bits                    the bits of packed words at given positions
   pairwise_overlap_counts_host numpy AND + popcount (the host engine)
   overlap_counts_plain         the plain PyTorch version of the kernel
-                               (kernels/cuda_compare.py): AND of the
-                               words' bytes and a 256-entry popcount table
+                               for one scaffold (kernels/cuda_compare.py):
+                               AND of the words' bytes and a 256-entry
+                               popcount table
+  group_plan, group_buffer     a comparison group's scaffolds in one
+                               buffer for one launch: the group table
+                               (csrc/compare.cu) and the words
+  overlap_counts_group_plain   the plain version of the group kernel: a
+                               loop of overlap_counts_plain over the table
+  split_counts                 the group's counts, scaffold by scaffold
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +101,93 @@ def overlap_counts_plain(words: torch.Tensor
         both[:, i:, i] = c.T
     single = torch.diagonal(both, dim1=1, dim2=2).contiguous()
     return both, single
+
+
+# ---------------------------------------------------------------------------
+# A comparison group in one launch (csrc/compare.cu): per scaffold s,
+# words [N_s, Mg_s, W_s] end to end after the group table; its counts
+# both [Mg_s, N_s, N_s] then single [Mg_s, N_s] end to end in one int64
+# output. Each (scaffold, mm level) row is cut into blocks of `chunk`
+# words, chunk set per scaffold for about the same bytes a block (the
+# kernel is bound by its reads), so that the group gives every SM
+# GROUP_BLOCKS_PER_SM blocks; chunk is a multiple of GROUP_MIN_CHUNK, and
+# a block's 32-bit sums bound it by GROUP_MAX_CHUNK (2^24 words hold 2^30
+# positions).
+
+GROUP_FIELDS = 7           # N, Mg, W, chunk, word off, out off, block0
+GROUP_MIN_CHUNK = 32
+GROUP_MAX_CHUNK = 1 << 24
+GROUP_BLOCKS_PER_SM = 4
+
+
+class GroupPlan(NamedTuple):
+    """The launch of a group of scaffolds of `shapes` (N, Mg, W): the
+    int64 table [GROUP_FIELDS, S + 1] (csrc/compare.cu), the words and
+    counts in all and the blocks of the launch."""
+    shapes: Tuple[Tuple[int, int, int], ...]
+    table: np.ndarray
+    n_words: int
+    n_out: int
+    n_blocks: int
+
+
+def group_plan(shapes: Sequence[Tuple[int, int, int]],
+               sms: int = 132) -> GroupPlan:
+    """The group table of scaffolds of (N, Mg, W), each >= 1, for a card
+    of `sms` SMs (plain Python: it runs before every launch)."""
+    shapes = tuple((int(n), int(mg), int(w)) for n, mg, w in shapes)
+    assert shapes and all(min(x) >= 1 for x in shapes), shapes
+    total = sum(n * mg * w for n, mg, w in shapes)
+    per_block = -(-total // (sms * GROUP_BLOCKS_PER_SM))
+    t = np.zeros((GROUP_FIELDS, len(shapes) + 1), np.int64)
+    for s, (n, mg, w) in enumerate(shapes):
+        chunk = -(-per_block // n // GROUP_MIN_CHUNK) * GROUP_MIN_CHUNK
+        chunk = min(max(chunk, GROUP_MIN_CHUNK), GROUP_MAX_CHUNK, w)
+        t[:4, s] = n, mg, w, chunk
+        t[4, s + 1] = t[4, s] + n * mg * w
+        t[5, s + 1] = t[5, s] + mg * n * (n + 1)
+        t[6, s + 1] = t[6, s] + mg * -(-w // chunk)
+    return GroupPlan(shapes, t, int(t[4, -1]), int(t[5, -1]),
+                     int(t[6, -1]))
+
+
+def group_buffer(words: Sequence[np.ndarray], plan: GroupPlan,
+                 out: np.ndarray = None) -> np.ndarray:
+    """The group's one host buffer, int64 [table | words], written into
+    `out` (a view of pinned memory, say) when given."""
+    n_table = plan.table.size
+    if out is None:
+        out = np.empty(n_table + plan.n_words, np.int64)
+    out[:n_table] = plan.table.reshape(-1)
+    at = n_table
+    for w in words:
+        out[at:at + w.size] = w.reshape(-1).view(np.int64)
+        at += w.size
+    assert at == out.size, (at, out.size)
+    return out
+
+
+def overlap_counts_group_plain(buf: torch.Tensor, plan: GroupPlan
+                               ) -> torch.Tensor:
+    """Plain version of the group kernel: int64 [n_out] counts of the
+    group buffer `buf` (int64 [table | words], on any device)."""
+    words = buf[plan.table.size:]
+    out = []
+    for s, (n, mg, w) in enumerate(plan.shapes):
+        a = int(plan.table[4, s])
+        both, single = overlap_counts_plain(
+            words[a:a + n * mg * w].view(n, mg, w))
+        out += [both.reshape(-1), single.reshape(-1)]
+    return torch.cat(out)
+
+
+def split_counts(out: np.ndarray, plan: GroupPlan
+                 ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(both [Mg, N, N], single [Mg, N]) of each scaffold of the group,
+    views of its counts `out` int64 [n_out]."""
+    res = []
+    for s, (n, mg, _) in enumerate(plan.shapes):
+        a = int(plan.table[5, s])
+        res.append((out[a:a + mg * n * n].reshape(mg, n, n),
+                    out[a + mg * n * n:a + mg * n * (n + 1)].reshape(mg, n)))
+    return res

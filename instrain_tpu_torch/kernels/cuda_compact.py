@@ -19,7 +19,12 @@ build.cuda_kernels_library, bound with ctypes):
                  column written as one contiguous run.
   mm_aggregates  C2: the per-mm integer and f64 aggregates and the
                  forward-filled clon / clonR (replaces _ffill_expand and
-                 :569-627).
+                 :569-627): 2048 positions a block, 8 a thread (256
+                 and 1 a thread where that leaves the card few
+                 blocks), the
+                 per-level sums in registers, packed 0/1 counts folded by
+                 one REDUX a word, one atomic per (block, level,
+                 quantity) into one buffer zeroed by the launch.
   masked_median  C3: the exact per-mm medians of coverage, clon and clonR
                  by radix select (replaces _median_select, :379-423): a
                  row of a segment of at most MEDIAN_SHORT_KEYS positions is
@@ -46,7 +51,7 @@ import torch
 
 from . import cuda_sitestats as cs
 from . import sitestats as plain
-from .cuda_sitestats import _check, _require, _stream
+from .cuda_sitestats import _check, _fail, _stream
 
 _bound = False
 _bind_lock = threading.Lock()
@@ -68,7 +73,7 @@ def _lib():
                 [P] * 10 + [I, I64] + seg + [P, P, I, I] + [P] * 7 + [P])
             lib.instrain_mm_aggregates.restype = I
             lib.instrain_mm_aggregates.argtypes = (
-                [P] * 7 + [I, I64] + seg + [P] * 5 + [P])
+                [P] * 7 + [I, I64, P, I, I, I64] + [P] * 3 + [P])
             med = [P] * 5 + [I, I64, P, I]     # inputs, M, L, segments
             lib.instrain_median_short.restype = I
             lib.instrain_median_short.argtypes = med + [I, P, P]
@@ -90,25 +95,32 @@ _FULL = {"row": (torch.bool, "ML"), "any_snp": (torch.bool, "L"),
 
 def _check_full(full, keys, name):
     """(M, L, device) of a site_stats output dict, after checking the
-    dtype, shape, device and layout of every array the kernel reads."""
+    dtype, shape, device and layout of every array the kernel reads (each
+    message is built only when its check fails: the checks run on every
+    call)."""
     missing = [k for k in keys if k not in full]
-    _require(not missing, name, f"missing site_stats outputs {missing}")
-    _require(full["total"].dim() == 2, name,
-             "site_stats outputs must be [M, L]")
-    M, L = full["total"].shape
-    dev = full["total"].device
-    _require(dev.type == "cuda", name, f"unsupported device {dev}")
-    _require(M >= 1 and L >= 1 and M * L < 2 ** 31, name,
-             f"[M, L] = [{M}, {L}] out of range")
+    if missing:
+        _fail(name, f"missing site_stats outputs {missing}")
+    total = full["total"]
+    if total.dim() != 2:
+        _fail(name, "site_stats outputs must be [M, L]")
+    M, L = total.shape
+    dev = total.device
+    if dev.type != "cuda":
+        _fail(name, f"unsupported device {dev}")
+    if not (M >= 1 and L >= 1 and M * L < 2 ** 31):
+        _fail(name, f"[M, L] = [{M}, {L}] out of range")
     shapes = {"ML": (M, L), "L": (L,), "M4L": (M, 4, L)}
     for k in keys:
         dt, kind = _FULL[k]
         t = full[k]
-        _require(t.dtype == dt and tuple(t.shape) == shapes[kind], name,
-                 f"{k} must be {dt} {shapes[kind]}, got {t.dtype} "
-                 f"{tuple(t.shape)}")
-        _require(t.device == dev, name, "inputs on two devices")
-        _require(t.is_contiguous(), name, "inputs must be contiguous")
+        if t.dtype != dt or t.shape != shapes[kind]:
+            _fail(name, f"{k} must be {dt} {shapes[kind]}, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+        if t.device != dev:
+            _fail(name, "inputs on two devices")
+        if not t.is_contiguous():
+            _fail(name, "inputs must be contiguous")
     return M, L, dev
 
 
@@ -117,8 +129,8 @@ def _check_full(full, keys, name):
 
 
 def _check_seg(total, seg, name):
-    _require(seg.L == total.shape[-1] and seg.device == total.device, name,
-             "segment table does not match the inputs")
+    if seg.L != total.shape[-1] or seg.device != total.device:
+        _fail(name, "segment table does not match the inputs")
 
 
 def select_rows(full, seg: plain.Segments):
@@ -211,6 +223,21 @@ def _rows_gather(job: _RowsJob, n_rows: int, n_pos: int):
 select_rows.launches = 0
 
 
+# mm_aggregates takes AGG_PER positions a thread (blocks of a big tile,
+# sitestats.BIG_TILE) while that gives the card AGG_MIN_BLOCKS_PER_SM
+# blocks a SM, else one (blocks of a tile, sitestats.TILE): a launch of
+# few big tiles (one 250 kb segment: 123 for 132 SMs) waits on its few
+# blocks' per-level latency
+AGG_PER = 8
+AGG_MIN_BLOCKS_PER_SM = 2
+
+
+def aggregates_per_thread(n_btiles: int, sms: int) -> int:
+    """mm_aggregates' positions a thread for a chunk of n_btiles big
+    tiles on a card of `sms` SMs."""
+    return AGG_PER if n_btiles >= AGG_MIN_BLOCKS_PER_SM * sms else 1
+
+
 def mm_aggregates(full, seg: plain.Segments):
     """(agg, clon_f, clonR_f) as kernels/sitestats.py:mm_aggregates_seg:
     each aggregate [S, M], the filled clon / clonR [M, Ltot]."""
@@ -221,20 +248,25 @@ def mm_aggregates(full, seg: plain.Segments):
     M, L, dev = _check_full(full, keys, name)
     _check_seg(full["total"], seg, name)
     lib = _lib()
-    shape = (seg.S, M)
-    agg_i = torch.zeros((len(plain.AGG_INT),) + shape, dtype=torch.int64,
-                        device=dev)
-    agg_f = torch.zeros((len(plain.AGG_F64),) + shape, dtype=torch.float64,
-                        device=dev)
-    active = torch.zeros(shape, dtype=torch.bool, device=dev)
+    S = seg.S
+    per = aggregates_per_thread(seg.n_btiles, _sms(dev))
+    # the aggregates in one buffer, zeroed by the launch: [10, S, M] int64,
+    # [2, S, M] f64, [S, M] bool
+    n_i, n_f = len(plain.AGG_INT), len(plain.AGG_F64)
+    agg_buf = torch.empty((8 * (n_i + n_f) + 1) * S * M, dtype=torch.uint8,
+                          device=dev)
     clon_f = torch.empty((M, L), dtype=torch.float32, device=dev)
     clonR_f = torch.empty((M, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _check(lib.instrain_mm_aggregates(
             *[full[k].data_ptr() for k in keys], M, L, seg.table_ptr(),
-            seg.S, seg.n_tiles, agg_i.data_ptr(), agg_f.data_ptr(),
-            active.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
-            _stream(agg_i)), name)
+            S, per, seg.n_btiles if per > 1 else seg.n_tiles,
+            agg_buf.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
+            _stream(clon_f)), name)
+    parts = agg_buf.split([8 * n_i * S * M, 8 * n_f * S * M, S * M])
+    agg_i = parts[0].view(torch.int64).view(n_i, S, M)
+    agg_f = parts[1].view(torch.float64).view(n_f, S, M)
+    active = parts[2].view(torch.bool).view(S, M)
     mm_aggregates.launches += 1
     agg = dict(zip(plain.AGG_INT, agg_i))
     agg.update(zip(plain.AGG_F64, agg_f))
@@ -309,32 +341,36 @@ def masked_median(total, clon_f, clonR_f, counted, rarefied,
     if total.device.type == "cpu":
         return plain.masked_medians_seg(total, clon_f, clonR_f, counted,
                                         rarefied, seg)
-    _require(total.device.type == "cuda", name,
-             f"unsupported device {total.device}")
-    _require(total.dim() == 2 and total.dtype == torch.int64, name,
-             "total must be int64 [M, L]")
+    if total.device.type != "cuda":
+        _fail(name, f"unsupported device {total.device}")
+    if total.dim() != 2 or total.dtype != torch.int64:
+        _fail(name, "total must be int64 [M, L]")
     M, L = total.shape
-    _require(M >= 1 and L >= 1 and M * L < 2 ** 31, name,
-             f"[M, L] = [{M}, {L}] out of range")
+    if not (M >= 1 and L >= 1 and M * L < 2 ** 31):
+        _fail(name, f"[M, L] = [{M}, {L}] out of range")
     _check_seg(total, seg, name)
-    _require(seg.S * M < 2 ** 31, name, "too many (segment, mm) rows")
+    if seg.S * M >= 2 ** 31:
+        _fail(name, "too many (segment, mm) rows")
     agg_shape = (seg.S, M)
     for t, dt, shape in ((clon_f, torch.float32, (M, L)),
                          (clonR_f, torch.float32, (M, L)),
                          (counted, torch.int64, agg_shape),
                          (rarefied, torch.int64, agg_shape)):
-        _require(t.dtype == dt and tuple(t.shape) == shape, name,
-                 f"expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.dtype != dt or t.shape != shape:
+            _fail(name, f"expected {dt} {shape}, got {t.dtype} "
+                        f"{tuple(t.shape)}")
     for t in (total, clon_f, clonR_f, counted, rarefied):
-        _require(t.device == total.device, name, "inputs on two devices")
-        _require(t.is_contiguous(), name, "inputs must be contiguous")
+        if t.device != total.device:
+            _fail(name, "inputs on two devices")
+        if not t.is_contiguous():
+            _fail(name, "inputs must be contiguous")
     dev = total.device
     off = seg.off.tolist()
     plan = median_plan([b - a for a, b in zip(off, off[1:])], M, _sms(dev))
     n_long = len(plan.long_segments)
     n_blocks = plan.first_block[-1]
-    _require(seg.S * 3 * M < 2 ** 31 and n_blocks * 3 * M < 2 ** 31, name,
-             "too many (segment, mm, value set) rows")
+    if seg.S * 3 * M >= 2 ** 31 or n_blocks * 3 * M >= 2 ** 31:
+        _fail(name, "too many (segment, mm, value set) rows")
     out = torch.empty((3,) + agg_shape, dtype=torch.float32, device=dev)
     args = (total.data_ptr(), clon_f.data_ptr(), clonR_f.data_ptr(),
             counted.data_ptr(), rarefied.data_ptr(), M, L, seg.table_ptr(),

@@ -87,7 +87,13 @@ def _check(rc: int, name: str) -> None:
 
 def _require(cond: bool, name: str, what: str) -> None:
     if not cond:
-        raise KernelError(f"{name}: {what}")
+        _fail(name, what)
+
+
+def _fail(name: str, what: str) -> None:
+    """Raise KernelError for a kernel's input check: called only once the
+    check failed, so that a message is formatted only then."""
+    raise KernelError(f"{name}: {what}")
 
 
 def _stream(t: torch.Tensor) -> int:

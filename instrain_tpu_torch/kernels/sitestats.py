@@ -433,14 +433,15 @@ def compact_from_full(full, M: int, L: int) -> Dict[str, Dict]:
 # aggregate).
 
 TILE = 256              # positions per block of the tiled kernels (kTile)
+BIG_TILE = 2048         # positions per block of mm_aggregates (kBigTile)
 
 
 class Segments:
     """The segment table of a chunk: S scaffolds of the given lengths laid
     end to end, each with its uint32[2] key. `table` is the kernels' copy
-    on `device` (csrc/segments.cuh): offsets, first tiles and keys; a
-    chunk of one segment has none (None), and its kernels take the key
-    `key0` as an argument instead."""
+    on `device` (csrc/segments.cuh): offsets, first tiles, keys and first
+    big tiles; a chunk of one segment has none (None), and its kernels
+    take the key `key0` as an argument instead."""
 
     def __init__(self, lengths, keys, device="cpu"):
         lengths = np.asarray(lengths, dtype=np.int64).reshape(-1)
@@ -449,8 +450,11 @@ class Segments:
         self.S = len(lengths)
         self.off = np.concatenate([[0], np.cumsum(lengths)])
         self.tile0 = np.concatenate([[0], np.cumsum(-(-lengths // TILE))])
+        self.btile0 = np.concatenate([[0], np.cumsum(-(-lengths //
+                                                        BIG_TILE))])
         self.L = int(self.off[-1])
         self.n_tiles = int(self.tile0[-1])
+        self.n_btiles = int(self.btile0[-1])
         packed = ((self.keys[:, 0].astype(np.uint64) << np.uint64(32)) |
                   self.keys[:, 1].astype(np.uint64))
         self.key0 = int(packed[0])
@@ -463,7 +467,8 @@ class Segments:
             # from pinned memory on the current stream, so that the host
             # does not wait for the stream's earlier work
             self.table = torch.from_numpy(np.concatenate(
-                [self.off, self.tile0, packed.view(np.int64), [0]])
+                [self.off, self.tile0, packed.view(np.int64), [0],
+                 self.btile0])
             ).pin_memory().to(self.device, non_blocking=True)
 
     def table_ptr(self):

@@ -134,20 +134,33 @@ def resolve_run_engine(cfg_engine: str, device: torch.device,
     return engine
 
 
-def resolve_engine(cfg_engine: str, device: torch.device, M: int,
-                   L: int) -> str:
+# The int16 pileup builder of the JAX package's hybrid engine falls back
+# to the unpadded int32 one when an exact-mm count exceeds this
+# (instrain_tpu/profile/pileup.py:121-126)
+INT16_MAX = 32767
+
+
+def resolve_engine(cfg_engine: str, device: torch.device, M: int, L: int,
+                   skip_mm: bool = False, counts=None) -> str:
     """The engine one scaffold of [M, L] runs outside the batch engine, as
-    the JAX package picks it (pipeline.py:451-453, :475-481): auto is
-    dense on the CPU and hybrid on a GPU; hybrid goes dense when
-    max(ceil8(M), 8) * max(ceil4096(L), 4096) exceeds
-    HYBRID_MAX_CELLS."""
+    the JAX package picks it (pipeline.py:451-453, :458-481): auto is dense
+    on the CPU and hybrid on a GPU; hybrid goes dense when the extent of
+    the pileup the JAX package builds exceeds HYBRID_MAX_CELLS. That
+    pileup is unpadded, M * L, under skip_mm (M is then 1) or when an
+    exact-mm count of `counts` (the scaffold's [M, 4, L] pileup; only its
+    max() is read, and only when the padded extent is over the bound)
+    exceeds INT16_MAX; else padded, max(ceil8(M), 8) *
+    max(ceil4096(L), 4096)."""
     engine = cfg_engine
     if engine == "auto":
         engine = "dense" if device.type == "cpu" else "hybrid"
-    if (engine == "hybrid" and max(_bucket(M, 8), 8) *
-            max(_bucket(L, 4096), 4096) > HYBRID_MAX_CELLS):
-        engine = "dense"
-    return engine
+    if engine != "hybrid":
+        return engine
+    cells = max(_bucket(M, 8), 8) * max(_bucket(L, 4096), 4096)
+    if cells > HYBRID_MAX_CELLS and (
+            skip_mm or (counts is not None and counts.max() > INT16_MAX)):
+        cells = M * L
+    return "dense" if cells > HYBRID_MAX_CELLS else engine
 
 
 @dataclass
@@ -422,8 +435,10 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
             if pu is None:
                 continue
             if engine == "hybrid":
-                oversize = resolve_engine(engine, device, pu.counts.shape[0],
-                                          L) == "dense"
+                oversize = resolve_engine(
+                    engine, device, pu.counts.shape[0], L,
+                    skip_mm=cfg.skip_mm_profiling, counts=pu.counts
+                ) == "dense"
             i = len(metas)
             metas[i] = (name, L, registry.codes[name])
             if oversize:

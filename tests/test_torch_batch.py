@@ -193,6 +193,40 @@ def test_batch_matches_jax_batch_and_port_hybrid():
                                       check_exact=True)
 
 
+@pytest.mark.parametrize("lengths", [[1], [2048], [2049, 1, 4095, 2048],
+                                     [40000] * 52, [1 << 20, 3, 300_001]])
+def test_aggregate_tiles_cover_every_position(lengths):
+    """mm_aggregates' blocks (csrc/compact.cu C2) at both of its widths:
+    with PER positions a thread, block b takes the segment whose first
+    tile (big tile for PER = 8) is the last <= b, and within it positions
+    (b - first) * 256 PER + thread + 256 v, v < PER: every position of
+    every segment once, no block over two segments."""
+    from instrain_tpu_torch.kernels.sitestats import (BIG_TILE, TILE,
+                                                      Segments)
+    seg = Segments(lengths, np.zeros((len(lengths), 2), np.uint32))
+    for per, first, n_blocks in ((CC.AGG_PER, seg.btile0, seg.n_btiles),
+                                 (1, seg.tile0, seg.n_tiles)):
+        assert TILE * per == (BIG_TILE if per > 1 else TILE)
+        seen = [np.zeros(n, np.int64) for n in lengths]
+        for b in range(n_blocks):
+            s = int(np.searchsorted(first, b, side="right")) - 1
+            p = (b - first[s]) * TILE * per + np.arange(TILE)[:, None] + \
+                TILE * np.arange(per)[None, :]
+            p = p[p < lengths[s]]
+            assert len(p), (b, s)
+            seen[s][p] += 1
+        assert all((x == 1).all() for x in seen)
+        assert n_blocks == sum(-(-n // (TILE * per)) for n in lengths)
+    # big tiles while they give every SM two blocks
+    sms = 132
+    assert CC.aggregates_per_thread(2 * sms, sms) == CC.AGG_PER
+    assert CC.aggregates_per_thread(2 * sms - 1, sms) == 1
+    deep = Segments([250_000], np.zeros((1, 2), np.uint32))
+    assert CC.aggregates_per_thread(deep.n_btiles, sms) == 1
+    chunk = Segments([40000] * 52, np.zeros((52, 2), np.uint32))
+    assert CC.aggregates_per_thread(chunk.n_btiles, sms) == CC.AGG_PER
+
+
 def test_chunk_planner():
     """Chunks hold one mm extent each (int16 and int32 wires never shared
     a chunk in the JAX package; here scaffolds of different M never do),
@@ -340,7 +374,9 @@ def cuda_device():
                                        (1, [7, 3000, 1_100_000]),
                                        (3, [1, 49152, 49153, 2]),
                                        (33, [40000] * 3),
-                                       (80, [300, 1, 2000])])
+                                       (80, [300, 1, 2000]),
+                                       (8, [40000] * 52),
+                                       (5, [2047, 2048, 2049, 1, 4095])])
 def test_segmented_kernels_match_plain_on_gpu(M, lengths, cuda_device):
     parts = [G.make_inputs(M, L, 3 + i) for i, L in enumerate(lengths)]
     counts = torch.from_numpy(np.concatenate([c for c, _ in parts], axis=2))

@@ -306,6 +306,48 @@ def test_resolve_engine():
     assert PP.resolve_engine("hybrid", cpu, 9, 1 << 23) == "hybrid"
     assert PP.resolve_engine("hybrid", cpu, 9, (1 << 23) + 1) == "dense"
     assert PP.resolve_engine("auto", cuda, 1, 2_500_000) == "hybrid"
+    # the extent of the pileup the JAX package builds
+    # (instrain_tpu/profile/pipeline.py:458-481): unpadded M * L under
+    # --skip_mm_profiling (M = 1) ...
+    L = (1 << 24) + 4096
+    assert PP.resolve_engine("hybrid", cuda, 1, L) == "dense"
+    assert PP.resolve_engine("hybrid", cuda, 1, L, skip_mm=True) == "hybrid"
+    assert PP.resolve_engine("auto", cuda, 1, 1 << 27,
+                             skip_mm=True) == "hybrid"
+    assert PP.resolve_engine("auto", cuda, 1, (1 << 27) + 1,
+                             skip_mm=True) == "dense"
+    assert PP.resolve_engine("auto", cpu, 1, L, skip_mm=True) == "dense"
+
+    # ... and when an exact-mm count overflows int16, so that the padded
+    # int16 builder falls back (instrain_tpu/profile/pileup.py:121-126);
+    # the rule reads only the counts' max()
+    class Peak:
+        def __init__(self, v):
+            self.v = v
+
+        def max(self):
+            return self.v
+
+    over, under = Peak(PP.INT16_MAX + 1), Peak(PP.INT16_MAX)
+    for M in range(1, 9):
+        for L in ((1 << 24) + 1, (1 << 27) // M):
+            if not (1 << 24) < L <= (1 << 27) // M:
+                continue
+            assert PP.resolve_engine("hybrid", cuda, M, L,
+                                     counts=over) == "hybrid", (M, L)
+            assert PP.resolve_engine("hybrid", cuda, M, L,
+                                     counts=under) == "dense", (M, L)
+            assert PP.resolve_engine("hybrid", cuda, M, L) == "dense"
+        assert PP.resolve_engine("hybrid", cuda, M, (1 << 27) // M + 1,
+                                 counts=over) == "dense", M
+    # the padded cases stand under a small peak or none
+    for peak in (None, under):
+        assert PP.resolve_engine("auto", cuda, 8, 1 << 24,
+                                 counts=peak) == "hybrid"
+        assert PP.resolve_engine("auto", cuda, 8, (1 << 24) + 1,
+                                 counts=peak) == "dense"
+        assert PP.resolve_engine("hybrid", cpu, 9, (1 << 23) + 1,
+                                 counts=peak) == "dense"
     # the run-level rule (instrain_tpu/profile/pipeline.py:239-246, :255):
     # auto is batch on a GPU from 16 kept scaffolds on, hybrid below and
     # dense on the CPU; batch with one scaffold runs hybrid
@@ -603,7 +645,8 @@ def cuda_device():
                                       (33, 5000, 2), (8, 300_001, 3),
                                       (1, 1, 4), (3, 49152, 5),
                                       (3, 49153, 6), (33, 40000, 7),
-                                      (80, 700, 8)])
+                                      (80, 700, 8), (8, 1 << 20, 9),
+                                      (5, 250_000, 10)])
 def test_k4_kernels_match_plain_on_gpu(M, L, seed, cuda_device):
     counts, ref = G.make_inputs(M, L, seed)
     seg = C.single_segment(L, PC._fold_keys(seed, [seed])[0], cuda_device)

@@ -66,6 +66,128 @@ def test_overlap_counts_match_jax(n, mg, L):
         np.testing.assert_array_equal(s, js)
 
 
+def _random_masks(rng, n, mg, L):
+    return [rng.random((mg, L)) < rng.random() for _ in range(n)]
+
+
+GROUPS = [
+    [(1, 1, 1), (2, 3, 7), (17, 5, 4099), (5, 1, 64)],
+    [(8, 5, 4000)] * 3,
+    [(64, 2, 130), (2, 1, 63), (17, 4, 1000), (1, 2, 65)],
+    [(3, 1, 1)],
+    [(2, 5, 20000), (8, 2, 1), (16, 4, 4099)],
+]
+
+
+@pytest.mark.parametrize("gi", range(len(GROUPS)))
+def test_overlap_counts_group_match_jax(gi):
+    """The plain group version over a group of mixed N, Mg and L (its
+    words in one buffer after the group table) equals the JAX package's
+    host and device functions scaffold by scaffold, exact in int64."""
+    rng = np.random.default_rng(gi)
+    masks = [_random_masks(rng, *d) for d in GROUPS[gi]]
+    words = [np.stack([K.pack_mask(m) for m in ms]) for ms in masks]
+    plan = K.group_plan([w.shape for w in words])
+    assert plan.n_words == sum(w.size for w in words)
+    buf = torch.from_numpy(K.group_buffer(words, plan))
+    out = CC.overlap_counts_group(buf, plan)
+    assert out.dtype == torch.int64 and out.shape == (plan.n_out,)
+    got = K.split_counts(out.numpy(), plan)
+    assert len(got) == len(masks)
+    for ms, (b, s) in zip(masks, got):
+        jb, js = JK.pairwise_overlap_counts_host(ms)
+        db, ds = JK.pairwise_overlap_counts_device(ms)
+        for want_b, want_s in ((jb, js), (db, ds)):
+            np.testing.assert_array_equal(b, want_b)
+            np.testing.assert_array_equal(s, want_s)
+
+
+def _block_rows(plan):
+    """(scaffold, mm level, first word, end word) of each block of the
+    group launch, as csrc/compare.cu:block_row finds them."""
+    t = plan.table
+    S = len(plan.shapes)
+    rows = []
+    for b in range(plan.n_blocks):
+        s = max(k for k in range(S) if t[6, k] <= b)
+        W, chunk = int(t[2, s]), int(t[3, s])
+        nb = -(-W // chunk)
+        m, c = divmod(b - int(t[6, s]), nb)
+        rows.append((s, m, c * chunk, min(c * chunk + chunk, W)))
+    return rows
+
+
+@pytest.mark.parametrize("sms", [1, 2, 132])
+@pytest.mark.parametrize("shapes", [
+    [(8, 5, 625)] * 128, [(16, 4, 1 << 17)], [(64, 3, 1563)],
+    [(1, 1, 1), (2, 5, 1), (17, 3, 70000), (64, 1, 63)],
+    [(2, 1, 1 << 17)] + [(8, 2, 625)] * 7])
+def test_group_plan_covers_every_row(shapes, sms):
+    """The group launch's blocks cover every (scaffold, mm level) row's
+    words once, in chunks within the kernel's bounds, and the offsets lay
+    the words and counts end to end."""
+    plan = K.group_plan(shapes, sms)
+    t = plan.table
+    seen = {}
+    for s, m, w0, w1 in _block_rows(plan):
+        assert 0 <= w0 < w1 <= shapes[s][2]
+        seen.setdefault((s, m), []).append((w0, w1))
+    for s, (n, mg, W) in enumerate(shapes):
+        chunk = int(t[3, s])
+        assert chunk == W or (chunk % K.GROUP_MIN_CHUNK == 0 and
+                              K.GROUP_MIN_CHUNK <= chunk <=
+                              K.GROUP_MAX_CHUNK)
+        for m in range(mg):
+            spans = sorted(seen.pop((s, m)))
+            assert spans[0][0] == 0 and spans[-1][1] == W
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert t[4, s + 1] - t[4, s] == n * mg * W
+        assert t[5, s + 1] - t[5, s] == mg * n * (n + 1)
+    assert not seen
+    assert plan.n_out == int(t[5, -1]) and plan.n_blocks == int(t[6, -1])
+    if sms == 132 and shapes == [(8, 5, 625)] * 128:
+        # the study's rows are one block each
+        assert plan.n_blocks == 128 * 5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [
+    [(2, 1, 1), (3, 2, 4099), (8, 5, 40_000)],
+    [(16, 4, 1 << 23)], [(64, 3, 100_000)],
+    [(1, 1, 63), (2, 5, 64), (8, 3, 4099), (17, 2, 40_000), (64, 4, 1)],
+    [(8, 5, 40_000)] * 128,
+    [(2, 1, 63), (16, 4, 1 << 23), (8, 5, 40_000), (17, 1, 1)]])
+def test_overlap_group_kernel_matches_plain_on_gpu(shapes, cuda_device):
+    rng = np.random.default_rng(len(shapes))
+    words = []
+    for n, mg, L in shapes:
+        W = -(-L // 64)
+        w = rng.integers(0, 2 ** 64, (n, mg, W), dtype=np.uint64)
+        if L % 64:
+            w[:, :, -1] &= np.uint64((1 << (L % 64)) - 1)
+        words.append(w)
+    plan = K.group_plan([w.shape for w in words],
+                        torch.cuda.get_device_properties(
+                            cuda_device).multi_processor_count)
+    buf = torch.from_numpy(K.group_buffer(words, plan))
+    CC.reset_launch_counts()
+    got = CC.overlap_counts_group(buf.to(cuda_device), plan).cpu()
+    assert CC.launch_counts() == {"overlap_counts": 1}
+    want = K.overlap_counts_group_plain(buf, plan)
+    assert torch.equal(got, want)
+    for w, (b, s) in zip(words, K.split_counts(got.numpy(), plan)):
+        hb, hs = K.pairwise_overlap_counts_host(w)
+        np.testing.assert_array_equal(b, hb)
+        np.testing.assert_array_equal(s, hs)
+
+
 @pytest.mark.parametrize("L", [1, 7, 9, 33, 63, 64, 65, 130])
 def test_packing_zero_past_L(L):
     """The bits past L are zero, and the packed bits read back as the
@@ -280,36 +402,68 @@ def test_jax_profiledir_reads_port_comparisons(port_rcs):
 
 
 def test_auto_engine_rule():
+    """The auto rule decides per comparison group, from the summed
+    n^2 * Mg * L of its scaffolds of at most 64 samples."""
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
     bound = CP.DEVICE_MIN_WORK
-    assert CP.DEVICE_MIN_WORK == 1 << 33
-    # n^2 * Mg * L at the bound: 16 samples, 4 levels, 2^23 positions
-    assert 16 * 16 * 4 * (1 << 23) == bound
-    assert CP.use_device_overlap("auto", gpu, 16, 4, 1 << 23)
-    assert not CP.use_device_overlap("auto", gpu, 16, 4, (1 << 23) - 1)
-    assert not CP.use_device_overlap("auto", cpu, 16, 4, 1 << 30)
-    assert not CP.use_device_overlap("auto", gpu, 65, 4, 1 << 30)
-    assert CP.use_device_overlap("device", cpu, 2, 1, 10)
-    assert not CP.use_device_overlap("host", gpu, 64, 9, 1 << 30)
+    use = CP.use_device_overlap
+    # one scaffold at the bound and one position under it
+    n, mg = 8, 5
+    L = -(-bound // (n * n * mg))
+    assert use("auto", gpu, [(n, mg, L)]) == [True]
+    assert use("auto", gpu, [(n, mg, L - 1)]) == [False]
+    # the group's work sums: halves of the bound reach it together
+    half = (n, mg, -(-L // 2))
+    assert use("auto", gpu, [half]) == [False]
+    assert use("auto", gpu, [half, half]) == [True, True]
+    assert use("auto", gpu, [half, (n, mg, 1)]) == [False, False]
+    # scaffolds of more than 64 samples take the host popcount and do not
+    # count towards the bound
+    big = (65, 9, 1 << 30)
+    assert use("auto", gpu, [big]) == [False]
+    assert use("auto", gpu, [big, half]) == [False, False]
+    assert use("auto", gpu, [big, half, half]) == [False, True, True]
+    assert use("auto", gpu, [(64, 9, 1 << 30)]) == [True]
+    # never on the CPU; host and device as asked
+    assert use("auto", cpu, [(16, 4, 1 << 30)] * 3) == [False] * 3
+    assert use("device", cpu, [(2, 1, 10), (70, 1, 10)]) == [True, True]
+    assert use("host", gpu, [(64, 9, 1 << 30)] * 2) == [False, False]
+    assert use("auto", gpu, []) == []
 
 
 def test_device_engine_runs_the_wrapper(samples, jax_profiles, tmp_path,
                                         monkeypatch):
-    """--engine device runs the kernel's wrapper once per scaffold (its
-    plain version on the CPU, so no launch), auto on the CPU never."""
+    """--engine device runs the group kernel's wrapper once per comparison
+    group (its plain version on the CPU, so no launch), auto on the CPU
+    never; the TSVs do not change with the groups."""
     flags = _flags(samples, bams=False) + ["--device", "cpu"]
     calls = []
-    real = CC.overlap_counts
-    monkeypatch.setattr(CP.cuda_compare, "overlap_counts",
-                        lambda words: calls.append(words.shape) or
-                        real(words))
-    for eng, want in (("device", 4), ("auto", 0), ("host", 0)):
+    real = CC.overlap_counts_group
+    monkeypatch.setattr(CP.cuda_compare, "overlap_counts_group",
+                        lambda buf, plan: calls.append(plan.shapes) or
+                        real(buf, plan))
+    # 4 scaffolds of 5 kb: one group by default, 4 at 5,000 bp, 2 at
+    # 10,000
+    texts = {}
+    for eng, extra, want in (("device", [], 1), ("auto", [], 0),
+                             ("host", [], 0),
+                             ("device", ["--group_length", "5000"], 4),
+                             ("device", ["--group_length", "10000"], 2)):
         calls.clear()
         CC.reset_launch_counts()
-        _run(port_main, jax_profiles, str(tmp_path / f"{eng}.RC"),
-             flags + ["--engine", eng])
-        assert len(calls) == want, eng
+        tag = f"{eng}{''.join(extra[1:])}"
+        rc = _run(port_main, jax_profiles, str(tmp_path / f"{tag}.RC"),
+                  flags + ["--engine", eng] + extra)
+        assert len(calls) == want, (eng, extra)
+        assert sum(len(c) for c in calls) == (4 if want else 0)
         assert CC.launch_counts() == {"overlap_counts": 0}
+        texts[tag] = PD.ProfileDir(rc).get("comparisonsTable")
+    for tag, db in texts.items():
+        pd.testing.assert_frame_equal(
+            db.sort_values(["scaffold", "name1", "name2", "mm"]).reset_index(
+                drop=True),
+            texts["device"].sort_values(
+                ["scaffold", "name1", "name2", "mm"]).reset_index(drop=True))
 
 
 def test_kernel_fault_fails_compare(samples, jax_profiles, tmp_path,
@@ -329,10 +483,11 @@ def test_kernel_fault_fails_compare(samples, jax_profiles, tmp_path,
     db = PD.ProfileDir(rc).get("comparisonsTable")
     assert "scaf_1" not in set(db["scaffold"]) and len(db) > 0
 
-    def kernel_fault(words):
+    def kernel_fault(buf, plan):
         raise KernelError("overlap_counts: launch failed")
 
-    monkeypatch.setattr(CP.cuda_compare, "overlap_counts", kernel_fault)
+    monkeypatch.setattr(CP.cuda_compare, "overlap_counts_group",
+                        kernel_fault)
     with pytest.raises(KernelError):
         _run(port_main, jax_profiles, str(tmp_path / "k.RC"),
              flags + ["--engine", "device"])
