@@ -29,7 +29,10 @@ Phases (each prints its own lines; the first failure exits non-zero):
      bound of 49,152 positions and one past; all-equal values, rows of
      0-3 counted values among +inf, values on the select's digit
      boundaries); and the linkage kernel (K6) against its plain version
-     and the JAX package's golden file, every column bit for bit. Then the
+     and the JAX package's golden file, every column bit for bit, one
+     launch a call, at the golden shapes, one cell, 5,000 x 12 x 150,000,
+     64 x 33 x 9,000, 50,000 x 8 x 4,000,000 (its device and wrapper time
+     there) and either side of the grid's one-tile blocks. Then the
      overlap kernel of compare (K7), one launch per comparison group,
      against its plain group version and the host popcount, exact, at
      groups of one scaffold of (samples, mm levels, positions) up to
@@ -50,7 +53,8 @@ Phases (each prints its own lines; the first failure exits non-zero):
      (2.5 Mb at 60x) and a deep input (250 kb at 3000x, whose linkage
      crosses the device bound), which run hybrid, checking the output
      tables, each kernel's launch count against the planned chunks and
-     the scaffolds past the linkage bound, and the absence of scaffold
+     the scaffolds past the linkage bound, one copy to the card and one
+     back for each device linkage call, and the absence of scaffold
      failures; then the metagenome through
      --engine hybrid (TSVs byte-identical to the batch run), both engines'
      device copies under torch.profiler, the deep input on --device cpu
@@ -79,7 +83,9 @@ Phases (each prints its own lines; the first failure exits non-zero):
 The last three lines are the card's name and power limit, the kernels'
 JSON record and the device record.
 The kernels' record takes select_rows and masked_median at the
-metagenome's chunk, the other kernels at the shapes their phases time.
+metagenome's chunk, the other kernels at the shapes their phases time;
+ld's row has its device time beside its wrapper time at the deep input,
+and its times and bound at 50,000 x 8 x 4,000,000.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
 """
 
@@ -1015,13 +1021,47 @@ def compare_nan_equal(want, got, what):
     return err
 
 
-def phase_linkage(torch, card):
-    """The linkage kernel (K6) against its plain version and the JAX
-    package's golden file, every column bit for bit."""
-    import numpy as np
+# the linkage kernel's synthetic shapes (E edges, M mm levels, N pairs):
+# one cell; (b) and (c); (d), a 2.5 Mb isolate at depth with about 1 % SNV
+# sites
+LD_SHAPES = ((1, 1, 30), (5000, 12, 150_000), (64, 33, 9000),
+             (50_000, 8, 4_000_000))
+
+
+def ld_boundary_shapes(torch):
+    """Two shapes of 8 mm levels and 80 pairs an edge on either side of
+    the largest ld grid in which each block's cells make one tile of 256
+    on this card: 32 edges a block, and one edge more (a block of two
+    tiles)."""
     from instrain_tpu_torch.kernels import cuda_linkage as CL
+    plan = CL.ld_plan(1, 8, 0, 20, *CL._occupancy(torch.device("cuda")))
+    E = plan.grid * CL.LD_THREADS // 8
+    return ((E, 8, 80 * E), (E + 1, 8, 80 * (E + 1)))
+
+
+def ld_case(torch, E, M, N):
+    """ld's arguments on the card for synth.ld_inputs(E, M, N, E + M)."""
     from instrain_tpu_torch.profile.compact import _fold_keys
     from instrain_tpu_torch.synth import ld_inputs
+    args = [torch.from_numpy(a).to("cuda") for a in ld_inputs(E, M, N, E + M)]
+    return (*args, _fold_keys(2, [E])[0], 20, -(-M // 8) * 8)
+
+
+def ld_bound(args, out, rates):
+    """ld's bound: its inputs read and outputs written once, and min_snp
+    Threefry draws a cell (E * M cells)."""
+    E, M, _ = args[3].shape
+    return bound(nbytes(args[:7], out), E * M * args[8] * THREEFRY_OPS,
+                 rates["int32"])
+
+
+def phase_linkage(torch, card, rates):
+    """The linkage kernel (K6) against its plain version and the JAX
+    package's golden file, every column bit for bit, one launch a call;
+    then at shape (d) its wrapper's (ld_packed's) and its device time, L2
+    flushed, and its bound. Returns (max abs err, shape (d)'s times)."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
 
     dev = torch.device("cuda")
     inputs = ("e_idx", "mm_idx", "combo", "c1", "c2", "present1",
@@ -1044,17 +1084,33 @@ def phase_linkage(torch, card):
         log("linkage", f"golden {tag}: all {len(want)} columns equal the JAX "
                        f"package and the plain version bit for bit "
                        f"({int(got['valid'].sum())} valid cells)")
-    for E, M, N in ((1, 1, 30), (5000, 12, 150_000), (64, 33, 9000)):
-        args = [torch.from_numpy(a).to(dev)
-                for a in ld_inputs(E, M, N, E + M)]
-        rest = (_fold_keys(2, [E])[0], 20, -(-M // 8) * 8)
-        got = CL.ld(*args, *rest)
+    at_d = None
+    for E, M, N in LD_SHAPES + ld_boundary_shapes(torch):
+        args = ld_case(torch, E, M, N)
+        plan = CL.ld_plan(E, M, args[0].numel(), args[8], *CL._occupancy(dev))
+        CL.reset_launch_counts()
+        got = CL.ld(*args)
         torch.cuda.synchronize()
-        err = max(err, compare_nan_equal(CL.ld_plain(*args, *rest), got,
-                                         f"ld E={E} M={M}"))
-        log("linkage", f"E={E} M={M} N={N}: ld == plain bit for bit "
+        check(CL.launch_counts() == {"ld": 1},
+              f"ld E={E} M={M}: {CL.launch_counts()} launches, not 1")
+        err = max(err, compare_nan_equal(CL.ld_plain(*args), got,
+                                         f"ld E={E} M={M} N={N}"))
+        log("linkage", f"E={E} M={M} N={N} ({plan.grid} blocks of "
+                       f"{plan.edges_per_block} edges): ld == plain bit for bit "
                        f"({int(got['valid'].sum())} valid cells)")
-    return err
+        if (E, M, N) == LD_SHAPES[3]:
+            bnd = ld_bound(args, got, rates)
+            at_d = {"E": E, "M": M, "N": N,
+                    "ms": cold_ms(torch, lambda: CL.ld_packed(*args), 20),
+                    "device_ms": cold_ms(torch, lambda: CL.ld_packed(*args),
+                                         20, busy=True),
+                    "bound_ms": bnd[0], "bound_by": bnd[1]}
+            log("linkage", f"time at E={E} M={M} N={N} on {card}, cold "
+                           f"L2: device {at_d['device_ms']:.4f} ms, ld_packed "
+                           f"{at_d['ms']:.4f} ms; bound "
+                           f"{at_d['bound_ms']:.4f} ms ({at_d['bound_by']})")
+        del args, got
+    return err, at_d
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1143,6 +1199,44 @@ class D2HBytes:
     def __exit__(self, *exc):
         compact, pipeline = self.mods
         compact._finish_chunk, pipeline.run_site_stats = self.saved
+        return False
+
+
+class LinkageCopies:
+    """Traces each call of the device linkage engine under torch.profiler
+    (device_copies): the calls and, for each, its host-to-device and
+    device-to-host copies as the card ran them (None where the profiler
+    recorded no device activity), and the seconds the profiler added to
+    the run around the calls."""
+
+    def __init__(self, torch):
+        from instrain_tpu_torch.profile import linkage
+        self.mod, self.torch = linkage, torch
+        self.copies = []
+        self.overhead_s = 0.0
+
+    def __enter__(self):
+        self.saved = self.mod._calculate_linkage_device
+
+        def call(*a):
+            out = []
+
+            def run():
+                t = time.perf_counter()
+                out.append(self.saved(*a))
+                out.append(time.perf_counter() - t)
+
+            t0 = time.perf_counter()
+            got = device_copies(self.torch, run)
+            self.overhead_s += time.perf_counter() - t0 - out[1]
+            self.copies.append(got and (got["HtoD"][0], got["DtoH"][0]))
+            return out[0]
+
+        self.mod._calculate_linkage_device = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._calculate_linkage_device = self.saved
         return False
 
 
@@ -1337,7 +1431,7 @@ def phase_end_to_end(torch):
             C.reset_launch_counts()
             CC.reset_launch_counts()
             CL.reset_launch_counts()
-            with capture:
+            with capture, LinkageCopies(torch) as copies:
                 outs[name] = run(name, "auto")
             got = {**C.launch_counts(), **CC.launch_counts(),
                    **CL.launch_counts()}
@@ -1368,6 +1462,17 @@ def phase_end_to_end(torch):
             check(got["ld"] == len(past),
                   f"{name}: ld launched {got['ld']} times for {len(past)} "
                   f"scaffolds past the bound")
+            check(len(copies.copies) == len(past) and
+                  all(c == (1, 1) for c in copies.copies),
+                  f"{name}: {len(copies.copies)} device linkage calls made "
+                  f"(H2D, D2H) copies {copies.copies} on the card (None: "
+                  f"none traced), expected one each per call")
+            if past:
+                log("e2e", f"{name}: {len(copies.copies)} device linkage "
+                           f"call(s), (H2D, D2H) copies traced on the card "
+                           f"by torch.profiler: {copies.copies}; the "
+                           f"profiler added {copies.overhead_s:.3f} s to "
+                           f"the run's tables phase and wall")
             launches = {k: launches[k] + got[k] for k in launches}
     finally:
         PL.resolve_linkage_engine = resolve
@@ -1859,8 +1964,8 @@ def main():
     errs = {k: max(v, berrs.get(k, 0.0)) for k, v in errs.items()}
     for k, v in phase_compact_edges(torch, short_keys).items():
         errs[k] = max(errs[k], v)
-    errs["ld"] = phase_linkage(torch, card)
     rates = card_rates(torch)
+    errs["ld"], ld_at_d = phase_linkage(torch, card, rates)
     k7 = phase_compare_kernel(torch, card)
     phase_compare_crossover(torch, card)
     launches, ld_args, captured = phase_end_to_end(torch)
@@ -1876,21 +1981,25 @@ def main():
             torch))
     del captured
 
-    # the ld kernel at the deep input's shapes, as its run gave them
+    # the ld kernel at the deep input's shapes, as its run gave them: warm
+    # time of the main path's wrapper (ld_packed, one buffer) and of ld
+    # (the dict of its columns), and the launch's device time, L2 flushed
     from instrain_tpu_torch.kernels import cuda_linkage as CL
     errs["ld"] = max(errs["ld"], compare_nan_equal(
         CL.ld_plain(*ld_args), CL.ld(*ld_args), "ld, deep input"))
-    times["ld"] = timed_pair(torch, lambda: CL.ld(*ld_args),
+    times["ld"] = timed_pair(torch, lambda: CL.ld_packed(*ld_args),
                              lambda: CL.ld_plain(*ld_args), 20, 3)
+    ld_dict_ms = cuda_ms(torch, lambda: CL.ld(*ld_args), 20)
+    ld_device_ms = cold_ms(torch, lambda: CL.ld_packed(*ld_args), 20,
+                           busy=True)
     E, M, _ = ld_args[3].shape
-    ld_out = CL.ld(*ld_args)
-    # each (edge, mm) cell draws min_snp categorical samples
-    bounds["ld"] = bound(nbytes(ld_args[:7], ld_out),
-                         E * M * ld_args[8] * THREEFRY_OPS, rates["int32"])
+    bounds["ld"] = ld_bound(ld_args, CL.ld(*ld_args), rates)
     log("linkage", f"time at the deep input's shape (E={E} edges, M={M}, "
-                   f"{ld_args[0].numel()} pairs) on {card}: ld kernel "
-                   f"{times['ld'][0]:.4f} ms vs plain {times['ld'][1]:.4f} "
-                   f"ms; bound {bounds['ld'][0]:.4f} ms ({bounds['ld'][1]})")
+                   f"{ld_args[0].numel()} pairs) on {card}: ld_packed "
+                   f"{times['ld'][0]:.4f} ms, ld (dict) {ld_dict_ms:.4f} ms, "
+                   f"device {ld_device_ms:.4f} ms vs plain "
+                   f"{times['ld'][1]:.4f} ms; bound "
+                   f"{bounds['ld'][0]:.4f} ms ({bounds['ld'][1]})")
 
     main_shape = timing["metagenome (captured)"]
     kernels = [
@@ -1918,7 +2027,9 @@ def main():
          "source": "instrain_tpu_torch/csrc/linkage.cu",
          "replaces": "instrain_tpu/kernels/linkage.py:29",
          "launches": launches["ld"], "max_abs_err": errs["ld"],
-         "ms": times["ld"][0], "plain_ms": times["ld"][1]}
+         "ms": times["ld"][0], "plain_ms": times["ld"][1],
+         "device_ms": ld_device_ms, "dict_ms": ld_dict_ms,
+         "shape_d": ld_at_d}
     ]
     # no single PyTorch call computes K1-K3, mm_aggregates or K6:
     # library_ms is null for them

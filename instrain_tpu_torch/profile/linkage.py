@@ -240,25 +240,60 @@ def calculate_linkage(stats: ScaffoldStats, window_starts: np.ndarray,
         drop=True)
 
 
+# ld's inputs in the staging buffer: each at a multiple of this many bytes
+_STAGE_ALIGN = 128
+
+
+def _copy_to_device(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """The one copy of the device linkage engine's inputs to `dev`."""
+    return host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+
+
+def _copy_to_host(buf: torch.Tensor) -> torch.Tensor:
+    """The one copy of ld's output buffer back to the host."""
+    if buf.device.type != "cuda":
+        return buf
+    host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    torch.cuda.current_stream(buf.device).synchronize()
+    return host
+
+
+def _stage(arrays, device) -> list:
+    """The host arrays in one buffer (pinned for a GPU), each at a
+    multiple of _STAGE_ALIGN bytes, copied to `device` in one copy:
+    tensors on `device` viewing it, in the arrays' order, shapes and
+    dtypes."""
+    dev = torch.device(device)
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    view = host.numpy()
+    for a, o in zip(arrays, offs):
+        view[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = _copy_to_device(host, dev)
+    return [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
+
+
 def _device_ld_args(stats, pairs, e_idx, M, p1, p2, min_snp, seed,
                     device):
-    """The ld kernel's arguments for one scaffold, its tensors on
-    `device`: the pairs' edge, mm and combo indices, the cumulative counts
-    and presence at each edge's two positions, the key fold_in(seed, rid),
-    min_snp and the counter's mm stride ceil8(M)."""
+    """The ld kernel's arguments for one scaffold, its tensors views of one
+    buffer on `device` (one copy from the host): the pairs' edge, mm and
+    combo indices, the cumulative counts and presence at each edge's two
+    positions, the key fold_in(seed, rid), min_snp and the counter's mm
+    stride ceil8(M)."""
     from .compact import _fold_keys
 
-    dev = torch.device(device)
     c1, pr1 = _gather_pos_stats(stats, p1)            # [E, M, 4], [E, M]
     c2, pr2 = _gather_pos_stats(stats, p2)
-
-    def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-    return (t(e_idx, np.int32), t(pairs[:, 4], np.int32),
-            t(pairs[:, 2] * 4 + pairs[:, 3], np.int32), t(c1, np.int32),
-            t(c2, np.int32), t(pr1, np.bool_), t(pr2, np.bool_),
-            _fold_keys(seed, [stats.pileup.rid])[0], int(min_snp),
+    tensors = _stage([np.ascontiguousarray(a, dtype=dt) for a, dt in (
+        (e_idx, np.int32), (pairs[:, 4], np.int32),
+        (pairs[:, 2] * 4 + pairs[:, 3], np.int32), (c1, np.int32),
+        (c2, np.int32), (pr1, np.bool_), (pr2, np.bool_))], device)
+    return (*tensors, _fold_keys(seed, [stats.pileup.rid])[0], int(min_snp),
             -(-M // 8) * 8)
 
 
@@ -268,17 +303,20 @@ def _calculate_linkage_device(stats, pairs, e_idx, M, p1, p2, min_snp,
     scatter-add and the allele/gate/r2/D' math in the ld kernel; the host
     enumerates the pairs and builds the table. Nothing is padded: the
     kernel counts its draws in the JAX caller's padded mm extent
-    ceil8(M), which is all the padding changes."""
+    ceil8(M), which is all the padding changes. One copy each way: the
+    inputs in one buffer, ld's outputs in one buffer, unpacked here."""
     from ..kernels import cuda_linkage
 
-    out = cuda_linkage.ld(*_device_ld_args(stats, pairs, e_idx, M, p1, p2,
-                                           min_snp, seed, device))
-    valid = out["valid"].cpu().numpy()
+    host = _copy_to_host(cuda_linkage.ld_packed(
+        *_device_ld_args(stats, pairs, e_idx, M, p1, p2, min_snp, seed,
+                         device)))
+    out = {k: v.numpy() for k, v in
+           cuda_linkage.unpack_ld(host, len(p1), M).items()}
+    valid = out.pop("valid")
     if not valid.any():
         return pd.DataFrame()
     ri, mj = np.nonzero(valid)
-    out = {k: v.cpu().numpy()[ri, mj] for k, v in out.items()
-           if k != "valid"}
+    out = {k: v[ri, mj] for k, v in out.items()}
     base_arr = np.array(list(BASES))
     df = pd.DataFrame({
         "r2": out["r2"], "d_prime": out["d_prime"],

@@ -4,9 +4,12 @@ PyTorch ld_device (and the kernel wrapper, which takes it for CPU
 tensors) against instrain_tpu.kernels.linkage.ld_device on padded random
 inputs, every column bit for bit, the rarefied ones included; the f64
 FMA and the uniforms it is built from; calculate_linkage(engine="device")
-against the JAX package's on a synthetic scaffold; the auto engine rule;
-the committed golden file against a fresh JAX run; and — on a machine
-with an NVIDIA GPU — the ld kernel against its plain version.
+against the JAX package's on a synthetic scaffold and on one of many mm
+levels; the auto engine rule; the committed golden file against a fresh
+JAX run; the kernel's grid planner, its one-buffer output layout, the
+call site's one-buffer input staging and the kernel's tiled mm scan
+rendered in numpy; and — on a machine with an NVIDIA GPU — the ld kernel
+against its plain version, one launch a call.
 
 Tolerances: none. Float columns are compared by their bits, with every
 NaN equal to every NaN (XLA and the card may write different NaN
@@ -42,7 +45,9 @@ from instrain_tpu_torch.profile import compact as PC
 from instrain_tpu_torch.profile import filter_reads as PF
 from instrain_tpu_torch.profile import linkage as PL
 from instrain_tpu_torch.profile import pileup as PPU
-from instrain_tpu_torch.synth import ld_inputs, synth
+from instrain_tpu_torch.io.bgzf import bam_header, write_bgzf
+from instrain_tpu_torch.synth import (BASES, _scaffold_records, ld_inputs,
+                                      synth)
 
 import make_torch_linkage_golden as G
 
@@ -162,6 +167,195 @@ def test_calculate_linkage_device_matches_jax(deep_scaffold):
             assert (host[col].values == got[col].values).all(), col
 
 
+@pytest.fixture(scope="module")
+def many_mm_scaffold(tmp_path_factory):
+    """One 20 kb scaffold at 300x read from a strain that differs from the
+    reference at 3.5 % of its positions, at random: a read pair carries
+    some 10 mismatches, more or fewer, so the pairs spread over many mm
+    levels."""
+    d = tmp_path_factory.mktemp("many_mm")
+    rng = np.random.default_rng(31)
+    L = 20_000
+    ref = BASES[rng.integers(0, 4, L)]
+    strain = ref.copy()
+    pos = np.nonzero(rng.random(L) < 0.035)[0]
+    strain[pos] = BASES[(np.searchsorted(BASES, ref[pos]) +
+                         rng.integers(1, 4, len(pos))) % 4]
+    fasta, bam = str(d / "many.fasta"), str(d / "many.bam")
+    with open(fasta, "w") as f:
+        f.write(f">scaf_0\n{ref.tobytes().decode()}\n")
+    write_bgzf(bam, bam_header([("scaf_0", L)]) + _scaffold_records(
+        rng, 0, strain, L, L, 0, truth=ref))
+    return fasta, bam
+
+
+def test_calculate_linkage_device_many_mm_levels(many_mm_scaffold):
+    """The device engine (its one-copy staging and one-buffer unpacking
+    on the CPU) against the JAX package's where the pairs spread over many
+    mm levels, two buckets of the counter's padded mm extent."""
+    fasta, bam = many_mm_scaffold
+    js, ps = _hybrid_stats(fasta, bam)
+    assert len(ps.mm_values) >= 9
+    ws = PL.window_starts_for(ps.L)
+    want = JL.calculate_linkage(js, ws, min_snp=5, seed=4, engine="device")
+    got = PL.calculate_linkage(ps, ws, min_snp=5, seed=4, engine="device")
+    assert len(got) >= 10 and got["mm"].nunique() >= 5
+    pd.testing.assert_frame_equal(want, got, check_exact=True)
+
+
+def test_device_ld_args_stage_one_buffer(deep_scaffold, monkeypatch):
+    """_device_ld_args makes one copy of one buffer: its seven tensors are
+    views of it at multiples of 128 bytes, equal to the arrays they come
+    from."""
+    fasta, bam = deep_scaffold
+    _, ps = _hybrid_stats(fasta, bam)
+    ws = PL.window_starts_for(ps.L)
+    pairs = PL.capture_read_pairs(ps, ws)
+    key = pairs[:, 0] * (1 << 32) + pairs[:, 1]
+    uedges, e_idx = np.unique(key, return_inverse=True)
+    p1, p2 = uedges >> 32, uedges & 0xFFFFFFFF
+    M = len(ps.mm_values)
+    copies = []
+    monkeypatch.setattr(PL, "_copy_to_device",
+                        lambda host, dev: copies.append(host) or host)
+    args = PL._device_ld_args(ps, pairs, e_idx, M, p1, p2, 20, 3, "cpu")
+    assert len(copies) == 1
+    buf = copies[0]
+    c1, pr1 = PL._gather_pos_stats(ps, p1)
+    c2, pr2 = PL._gather_pos_stats(ps, p2)
+    want = [(e_idx, np.int32), (pairs[:, 4], np.int32),
+            (pairs[:, 2] * 4 + pairs[:, 3], np.int32), (c1, np.int32),
+            (c2, np.int32), (pr1, np.bool_), (pr2, np.bool_)]
+    for t, (a, dt) in zip(args[:7], want):
+        assert t.untyped_storage().data_ptr() == buf.data_ptr()
+        assert (t.data_ptr() - buf.data_ptr()) % PL._STAGE_ALIGN == 0
+        assert t.is_contiguous()
+        assert_same(np.asarray(a, dtype=dt), t, "staged input")
+    assert args[8:] == (20, -(-M // 8) * 8)
+    np.testing.assert_array_equal(args[7],
+                                  PC._fold_keys(3, [ps.pileup.rid])[0])
+
+
+@pytest.mark.parametrize("E,M", [(1, 1), (83, 5), (40, 9), (7, 33)])
+def test_ld_layout_roundtrip(E, M):
+    """The plain version's outputs packed into ld's one buffer and read
+    back: every column's dtype, shape and values, each column starting at
+    a multiple of LD_ALIGN bytes."""
+    inputs = _t(ld_inputs(E, M, 40 * E, E))
+    want = CL.ld_plain(*inputs, PC._fold_keys(1, [E])[0], 7, -(-M // 8) * 8)
+    cols, n = CL.ld_layout(E * M)
+    assert [c for c, _, _ in cols] == [c for c, _ in CL.LD_COLUMNS]
+    assert sorted(want) == sorted(c for c, _ in CL.LD_COLUMNS)
+    assert all(off % CL.LD_ALIGN == 0 for _, _, off in cols)
+    assert n % CL.LD_ALIGN == 0 and n >= cols[-1][2] + E * M
+    buf = CL.pack_ld(want, E, M)
+    assert buf.dtype == torch.uint8 and buf.numel() == n
+    got = CL.unpack_ld(buf, E, M)
+    assert sorted(got) == sorted(want)
+    for (name, dt, off), (cname, cdt) in zip(cols, CL.LD_COLUMNS):
+        t = got[name]
+        assert t.dtype == dt == cdt and tuple(t.shape) == (E, M)
+        assert t.untyped_storage().data_ptr() == buf.data_ptr()
+        assert t.storage_offset() * t.element_size() == off
+        assert_same(want[name].numpy(), t, name)
+
+
+@pytest.mark.parametrize("E,M,N,min_snp,sms,per_sm,want", [
+    # E * M = 1: one edge, every block adding pairs
+    (1, 1, 30, 20, 132, 2, (264, 1, 0, 64)),
+    # one edge a block, then two
+    (264, 5, 1000, 20, 132, 2, (264, 1, 0, 264 * 5 * 64)),
+    (265, 5, 1000, 20, 132, 2, (264, 2, 0, 265 * 5 * 64)),
+    # draws made ahead from 256 pairs a block on
+    (5000, 12, 264 * 256 - 1, 20, 132, 2, (264, 19, 0, 5000 * 12 * 64)),
+    (5000, 12, 264 * 256, 20, 132, 2, (264, 19, 39, 5000 * 12 * 64)),
+    # ... bounded by the pairs a block adds (3 draws each)
+    (5000, 12, 150_000, 20, 132, 2, (264, 19, 86, 5000 * 12 * 64)),
+    # ... by shared memory (64 KB of 4-byte words, min_snp a cell)
+    (50_000, 8, 4_000_000, 20, 132, 2, (264, 190, 819, 50_000 * 8 * 64)),
+    (50_000, 8, 4_000_000, 2, 132, 2, (264, 190, 1520, 50_000 * 8 * 64)),
+    # ... by the block's cells
+    (83, 5, 132_840, 20, 132, 2, (264, 1, 5, 83 * 5 * 64)),
+    # no pairs: nothing drawn ahead
+    (10, 3, 0, 20, 132, 2, (264, 1, 0, 10 * 3 * 64)),
+    # another card
+    (1000, 4, 50_000, 7, 16, 3, (48, 21, 84, 1000 * 4 * 64)),
+])
+def test_ld_plan(E, M, N, min_snp, sms, per_sm, want):
+    plan = CL.ld_plan(E, M, N, min_snp, sms, per_sm)
+    assert tuple(plan) == want
+    grid, epb, pre, _ = plan
+    assert grid == sms * per_sm
+    assert grid * epb >= E > grid * (epb - 1)      # every edge, no idle row
+    assert 0 <= pre <= epb * M
+    assert pre * min_snp * 4 <= CL.LD_PRE_SMEM
+    assert pre == 0 or N >= grid * CL.LD_THREADS
+
+
+def _tile_scan(hist, E, M, lo_e, hi_e, threads=256, warp=32):
+    """The cumulative combo counts of cells [lo_e * M, hi_e * M) as
+    csrc/linkage.cu:ld_block forms them: tiles of `threads` cells, a
+    segmented scan over each warp's lanes (lane - d in the same edge
+    exactly when its level m >= d), the warps' last lanes and the tile's
+    last cell carried through shared memory (double-buffered by tile)."""
+    lo, hi = lo_e * M, hi_e * M
+    out = np.zeros((hi - lo, 16), np.int64)
+    last = np.zeros((2, threads // warp, 16), np.int64)
+    tail = np.zeros((2, 16), np.int64)
+    buf = 0
+    for base in range(lo, hi, threads):
+        cell = base + np.arange(threads)
+        active = cell < hi
+        e = np.where(active, cell // M, -1)
+        m = np.where(active, cell % M, 0)
+        h = np.zeros((threads, 16), np.int64)
+        h[active] = hist[cell[active]]
+        lane = np.arange(threads) % warp
+        d = 1
+        while d < warp and d < M:
+            up = np.roll(h.reshape(-1, warp, 16), d, axis=1).reshape(h.shape)
+            take = (lane >= d) & (m >= d)
+            h = h + np.where(take[:, None], up, 0)
+            d <<= 1
+        last[buf] = h.reshape(-1, warp, 16)[:, -1]
+        for w in range(threads // warp):
+            r = slice(w * warp, (w + 1) * warp)
+            if m[w * warp] == 0:
+                continue
+            e_first, start = e[w * warp], e[w * warp] * M
+            c = np.zeros(16, np.int64)
+            k = w - 1
+            while k >= 0:
+                c += last[buf][k]
+                if base + warp * k <= start:
+                    break
+                k -= 1
+            if k < 0:
+                c += tail[buf ^ 1]
+            h[r] += np.where((e[r] == e_first)[:, None], c, 0)
+        tail[buf] = h[-1]
+        out[cell[active] - lo] = h[active]
+        buf ^= 1
+    return out
+
+
+@pytest.mark.parametrize("E,M,lo_e,hi_e", [
+    (40, 8, 0, 40),      # edges within warps
+    (30, 5, 3, 30),      # edges across warps
+    (4, 33, 0, 4),       # an edge across warps and tiles of 32
+    (2, 300, 0, 2),      # edges across tiles
+    (9, 97, 2, 9),       # across warps and tiles, not from edge 0
+    (1, 1, 0, 1), (700, 1, 0, 700)])
+def test_tile_scan_is_the_mm_prefix(E, M, lo_e, hi_e):
+    """ld_block's tiled segmented scan, rendered in numpy, equals each
+    edge's cumulative sum over its mm levels."""
+    rng = np.random.default_rng(E * M)
+    hist = rng.integers(0, 5, (E * M, 16))
+    want = np.cumsum(hist.reshape(E, M, 16), axis=1)[lo_e:hi_e]
+    got = _tile_scan(hist, E, M, lo_e, hi_e)
+    np.testing.assert_array_equal(got.reshape(hi_e - lo_e, M, 16), want)
+
+
 def test_auto_linkage_engine_rule(deep_scaffold, monkeypatch):
     """auto: the device engine on a CUDA device from DEVICE_MIN_PAIRS
     captured pairs on, the host engine below it and on the CPU — the rule
@@ -230,9 +424,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,M,N,min_snp", [(1, 1, 30, 20), (300, 5, 20000, 20),
-                                           (5000, 12, 150000, 20),
-                                           (64, 33, 9000, 7)])
+@pytest.mark.parametrize("E,M,N,min_snp", [
+    (1, 1, 30, 20), (300, 5, 20000, 20), (5000, 12, 150000, 20),
+    (64, 33, 9000, 7), (50_000, 8, 4_000_000, 20),
+    # one tile a block and two on the H100's grid of 396 blocks
+    (12_672, 8, 1_013_760, 20), (12_673, 8, 1_013_840, 20)])
 def test_ld_kernel_matches_plain_on_gpu(E, M, N, min_snp, cuda_device):
     inputs = [t.to(cuda_device) for t in _t(ld_inputs(E, M, N, E + M))]
     key = PC._fold_keys(2, [E])[0]
