@@ -44,9 +44,12 @@ Phases (each prints its own lines; the first failure exits non-zero):
      summed work n^2 * Mg * L that compare's auto engine reads.
      Kernel and plain times from CUDA events, each kernel's bound from its
      bytes and operations at the card's rates;
-  4. end to end: `instrain_tpu_torch profile` through the CLI on a small
-     synthetic BAM, --engine dense, hybrid and batch, each on --device
-     cuda and --device cpu (each pair's TSVs byte-identical); then the
+  4. end to end: `instrain_tpu_torch profile -g` through the CLI on a
+     small synthetic BAM with the genes of synth_genes, --engine dense,
+     hybrid and batch, each on --device cuda and --device cpu (each pair's
+     TSVs, gene_info too, byte-identical, and so are the outputs of
+     parse_annotations over each, with an annotation CSV the smoke
+     writes); then the
      main paths through --engine auto, each with every launch count reset
      just before it and read just after: the synthetic metagenome (128 x
      40 kb at 30x), which runs the batch engine, a one-scaffold isolate
@@ -55,15 +58,23 @@ Phases (each prints its own lines; the first failure exits non-zero):
      tables, each kernel's launch count against the planned chunks and
      the scaffolds past the linkage bound, one copy to the card and one
      back for each device linkage call, and the absence of scaffold
-     failures; then the metagenome through
-     --engine hybrid (TSVs byte-identical to the batch run), both engines'
-     device copies under torch.profiler, the deep input on --device cpu
+     failures; then the metagenome with -g (synth_genes' prodigal file)
+     through --engine auto (batch): a gene_info row for every gene of the
+     profiled scaffolds, each kernel launched as often as without -g, no
+     scaffold or gene failure, and its wall and genes phase beside the
+     run without -g; the metagenome with -g through --engine hybrid (TSVs
+     and gene_info byte-identical to the batch run), both engines' device
+     copies under torch.profiler (batch with -g too: the same copies as
+     without), the deep input on --device cpu
      with the device linkage engine forced (TSVs byte-identical), and the
      metagenome and the isolate through --engine dense (launch counts
      reset and read around each run: site_stats and clonR once per 1 Mb
      position chunk, the other kernels never; the reference's
      cross-engine tolerances against the batch and hybrid tables, the
-     rarefied columns of the isolate apart); then compare: 8 samples of
+     metagenome's with -g and gene_info, the rarefied columns of the
+     isolate apart); `profile_genes` with synth_genes' GenBank file over
+     the metagenome's profile (covT a pickle where h5py is missing): a
+     gene_info row for every gene, no failure; then compare: 8 samples of
      the metagenome (4 genomes, 10-40x) profiled on the card with
      genome-wide aggregation, and compared (with -s, --bams,
      --store_mismatch_locations and --store_coverage_overlap) on the card
@@ -1124,13 +1135,13 @@ def read_table(out, name):
                        else 0)
 
 
-def run_profile(bam, fasta, out, engine, device="cuda"):
+def run_profile(bam, fasta, out, engine, device="cuda", genes=None):
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.profile import pipeline
     pipeline.PHASES = {}
     t0 = time.perf_counter()
     rc = main(["profile", bam, fasta, "-o", out, "--device", device,
-               "--engine", engine] + FLAGS)
+               "--engine", engine] + FLAGS + (["-g", genes] if genes else []))
     torch_sync()
     wall = time.perf_counter() - t0
     check(rc == 0, f"profile exited {rc}")
@@ -1240,14 +1251,18 @@ class LinkageCopies:
         return False
 
 
-def compare_tables(a_dir, b_dir, skip=()):
+TABLES = ("SNVs", "scaffold_info", "linkage", "mapping_info")
+GENE_TABLES = TABLES + ("gene_info",)
+
+
+def compare_tables(a_dir, b_dir, skip=(), tables=TABLES):
     """The reference's cross-engine tolerances (tests/test_compact.py:
     45-49): strings and integers exact, nucl_diversity* within 1e-6, other
     floats within 1e-9. Returns the largest absolute difference of each
     column in `skip`, which is not held to them."""
     import numpy as np
     diffs = {}
-    for t in ("SNVs", "scaffold_info", "linkage", "mapping_info"):
+    for t in tables:
         a, b = read_table(a_dir, t), read_table(b_dir, t)
         check(list(a.columns) == list(b.columns) and len(a) == len(b),
               f"{t}: shapes differ between engines")
@@ -1265,15 +1280,76 @@ def compare_tables(a_dir, b_dir, skip=()):
                 check(np.allclose(va[m], vb[m], rtol=tol, atol=tol),
                       f"{t}/{col}: engines differ beyond {tol}")
             else:
-                check(np.array_equal(va, vb),
-                      f"{t}/{col}: engines differ")
+                # strings and integers; the gene columns of SNVs are empty
+                # (NaN) outside genes
+                check(a[col].equals(b[col]), f"{t}/{col}: engines differ")
     return diffs
 
 
-def tsvs(out):
-    return {t: open(os.path.join(out, "output",
-                                 f"{os.path.basename(out)}_{t}.tsv")).read()
-            for t in ("SNVs", "scaffold_info", "linkage", "mapping_info")}
+def tsvs(out, tables=TABLES):
+    texts = {}
+    for t in tables:
+        with open(os.path.join(out, "output",
+                               f"{os.path.basename(out)}_{t}.tsv")) as f:
+            texts[t] = f.read()
+    return texts
+
+
+def outputs(out):
+    """{file name: text} of every file under <out>/output."""
+    loc = os.path.join(out, "output")
+    texts = {}
+    for name in sorted(os.listdir(loc)):
+        with open(os.path.join(loc, name)) as f:
+            texts[name] = f.read()
+    return texts
+
+
+class FailureLog:
+    """Collects the FAILURE lines logged while it is entered (a scaffold's
+    or a gene's failure), whatever file the run logs to. They are DEBUG
+    records: profile lets them through the root logger while it runs, and
+    the CLI's logger setup (basicConfig at DEBUG, at the smoke's first
+    call) for the other subcommands."""
+
+    def __init__(self):
+        import logging
+        self.lines = []
+        self.handler = logging.Handler(logging.DEBUG)
+        self.handler.emit = lambda r: (
+            self.lines.append(r.getMessage())
+            if "FAILURE" in r.getMessage() else None)
+
+    def __enter__(self):
+        import logging
+        logging.getLogger("").addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger("").removeHandler(self.handler)
+        return False
+
+
+def check_gene_info(out, genes_file):
+    """gene_info has a row for every gene of the profiled scaffolds (all
+    covered at these depths) with finite coverage and breadth; returns
+    the SNVs' mutation-type counts."""
+    import numpy as np
+    from instrain_tpu_torch.profile.genes import parse_genes
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
+    profiled = set(ProfileDir(out).get("scaffold_list"))
+    want = sorted(g for s, df in parse_genes(genes_file).scaff2genes.items()
+                  if s in profiled for g in df["gene"])
+    info = read_table(out, "gene_info")
+    check(sorted(info["gene"]) == want,
+          f"{out}: {len(info)} gene_info rows for {len(want)} genes of "
+          f"the profiled scaffolds")
+    for col in ("coverage", "breadth"):
+        check(np.isfinite(info[col]).all() and (info[col] > 0).all(),
+              f"{out}: gene_info {col} not finite and positive")
+    snv = read_table(out, "SNVs")
+    return snv["mutation_type"].value_counts().to_dict()
 
 
 def device_copies(torch, fn, trace=None):
@@ -1345,26 +1421,54 @@ def phase_end_to_end(torch):
     from instrain_tpu_torch.profile import compact as PC
     from instrain_tpu_torch.profile import linkage as PL
     from instrain_tpu_torch.store.profile_dir import ProfileDir
-    from instrain_tpu_torch.synth import synth
+    from instrain_tpu_torch.synth import synth, synth_genes
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    # a small input, each engine on the card against the CPU, byte for byte
+    # a small input with genes (-g, synth_genes' prodigal file), each
+    # engine on the card against the CPU, byte for byte, and
+    # parse_annotations over both profiles
     small = os.path.join(WORK, "small")
     os.makedirs(small)
     fasta, bam, _ = synth(small, S=4, L=5000, COV=60, seed=3)
+    small_genes, _ = synth_genes(fasta, seed=0)
+    anno = os.path.join(small, "anno.csv")
     for engine in ("dense", "hybrid", "batch"):
         outs = {}
-        for device in ("cuda", "cpu"):
-            outs[device] = os.path.join(small, f"{engine}_{device}.IS")
-            check(main(["profile", bam, fasta, "-o", outs[device],
-                        "--device", device, "--engine", engine] +
-                       FLAGS) == 0, f"small {engine} {device} run failed")
-        check(tsvs(outs["cuda"]) == tsvs(outs["cpu"]),
+        with FailureLog() as failed:
+            for device in ("cuda", "cpu"):
+                outs[device] = os.path.join(small, f"{engine}_{device}.IS")
+                check(main(["profile", bam, fasta, "-o", outs[device],
+                            "--device", device, "--engine", engine,
+                            "-g", small_genes] + FLAGS) == 0,
+                      f"small {engine} {device} run failed")
+        check(not failed.lines, f"small input: failures logged: "
+                                f"{failed.lines[:3]}")
+        check(tsvs(outs["cuda"], GENE_TABLES) ==
+              tsvs(outs["cpu"], GENE_TABLES),
               f"small input, --engine {engine}: TSVs differ GPU vs CPU")
-        log("e2e", f"small input (4 x 5 kb, 60x), --engine {engine}: GPU "
-                   f"TSVs byte-identical to the --device cpu run")
+        types = check_gene_info(outs["cuda"], small_genes)
+        if not os.path.exists(anno):
+            genes = read_table(outs["cuda"], "gene_info")["gene"]
+            with open(anno, "w") as f:
+                f.write("gene,anno\n" + "".join(
+                    f"{g},K{i % 5:05d}\n" for i, g in enumerate(genes[::2])))
+        annotated = {}
+        for device, out in outs.items():
+            annotated[device] = os.path.join(small, f"pa_{engine}_{device}")
+            check(main(["parse_annotations", "-i", out, "-a", anno, "-o",
+                        annotated[device], "-b", "0"]) == 0,
+                  f"small {engine} {device}: parse_annotations failed")
+        pa = outputs(annotated["cuda"])
+        check(pa == outputs(annotated["cpu"]) and
+              "SampleAnnotationTotals.csv" in pa,
+              f"small input, --engine {engine}: parse_annotations outputs "
+              f"differ GPU vs CPU")
+        log("e2e", f"small input (4 x 5 kb, 60x) with -g, --engine "
+                   f"{engine}: GPU TSVs (gene_info too) byte-identical to "
+                   f"the --device cpu run; SNV mutation types {types}; "
+                   f"parse_annotations' {len(pa)} files byte-identical")
 
     cases = MAIN_CASES
     data = {}
@@ -1377,18 +1481,24 @@ def phase_end_to_end(torch):
                    f"{data[name][2]} pairs): "
                    f"{time.perf_counter() - t0:.2f} s")
 
-    def run(name, engine, device="cuda"):
+    timings = {}
+
+    def run(name, engine, device="cuda", genes=None):
         S, L, cov = next(c[1:] for c in cases if c[0] == name)
         fasta, bam, n_pairs = data[name]
-        out = os.path.join(WORK, name, f"{name}_{engine}_{device}.IS")
+        out = os.path.join(WORK, name, f"{name}_{engine}_{device}"
+                                       f"{'_g' if genes else ''}.IS")
         with D2HBytes() as d2h:
-            wall, phases = run_profile(bam, fasta, out, engine, device)
+            wall, phases = run_profile(bam, fasta, out, engine, device,
+                                       genes)
+        timings[out] = (wall, phases)
         rows, snvs = check_outputs(out, S, cov)
         mi = read_table(out, "mapping_info")
         filtered = int(mi["filtered_pairs"].iloc[0])
         check(filtered > 0.9 * n_pairs, f"{name}: {filtered} of "
                                         f"{n_pairs} pairs pass filtering")
-        log("e2e", f"{name} --engine {engine} --device {device}: wall {wall:.2f} s, {filtered} "
+        log("e2e", f"{name} --engine {engine} --device {device}"
+                   f"{' -g' if genes else ''}: wall {wall:.2f} s, {filtered} "
                    f"filtered pairs -> {filtered / wall:.0f} filtered "
                    f"pairs/s; rows {rows}; {snvs} SNV sites")
         log("e2e", f"{name} --engine {engine} phases (s): " + ", ".join(
@@ -1421,6 +1531,7 @@ def phase_end_to_end(torch):
     five = ("site_stats", "clonR", "select_rows", "mm_aggregates",
             "masked_median")
     outs, launches = {}, dict.fromkeys(five + ("ld",), 0)
+    case_launches = {}
     PL.resolve_linkage_engine = record
     PL._device_ld_args = keep_ld_args
     capture = CompactCapture()
@@ -1435,6 +1546,7 @@ def phase_end_to_end(torch):
                 outs[name] = run(name, "auto")
             got = {**C.launch_counts(), **CC.launch_counts(),
                    **CL.launch_counts()}
+            case_launches[name] = got
             if name == "metagenome":
                 # the batch engine's planned chunks, from the profiled
                 # scaffolds (in run order) and their mm levels
@@ -1486,34 +1598,63 @@ def phase_end_to_end(torch):
           f"({linkage_choice[-1:]})")
     log("e2e", f"launches in the main paths, summed: {launches}")
 
-    # the metagenome through the hybrid engine: the same bytes
-    hybrid = run("metagenome", "hybrid")
-    check(tsvs(hybrid) == tsvs(outs["metagenome"]),
-          "metagenome: --engine hybrid TSVs differ from --engine batch")
-    log("e2e", "metagenome: --engine hybrid TSVs byte-identical to the "
-               "batch engine's")
-    # device copies and busy time of both engines on the metagenome
-    for engine in ("batch", "hybrid"):
+    # the metagenome through --engine auto (batch) with -g: the genes of a
+    # chunk are profiled on the host while the next chunk runs, so every
+    # kernel launches as often as without -g
+    meta_genes, meta_gb = synth_genes(data["metagenome"][0], seed=0)
+    C.reset_launch_counts()
+    CC.reset_launch_counts()
+    CL.reset_launch_counts()
+    with_genes = run("metagenome", "auto", genes=meta_genes)
+    got = {**C.launch_counts(), **CC.launch_counts(), **CL.launch_counts()}
+    check(got == case_launches["metagenome"],
+          f"metagenome -g: launches {got}, without -g "
+          f"{case_launches['metagenome']}")
+    types = check_gene_info(with_genes, meta_genes)
+    wall0 = timings[outs["metagenome"]][0]
+    wall1, phases1 = timings[with_genes]
+    n_genes = len(read_table(with_genes, "gene_info"))
+    log("e2e", f"metagenome --engine auto -g on {nvidia_smi_line()}: wall "
+               f"{wall1:.3f} s against {wall0:.3f} s without -g "
+               f"({wall1 - wall0:+.3f} s); genes phase (the gene file's "
+               f"parse and the gene calls) {phases1.get('genes', 0.0):.3f} s "
+               f"for {n_genes} genes; launches {got}, as without -g; SNV "
+               f"mutation types {types}")
+
+    # the metagenome through the hybrid engine with -g: the same bytes
+    hybrid = run("metagenome", "hybrid", genes=meta_genes)
+    check(tsvs(hybrid, GENE_TABLES) == tsvs(with_genes, GENE_TABLES),
+          "metagenome -g: --engine hybrid TSVs differ from --engine batch")
+    log("e2e", "metagenome -g: --engine hybrid TSVs (gene_info too) "
+               "byte-identical to the batch engine's")
+    # device copies and busy time of both engines on the metagenome, and
+    # of the batch engine with -g: the same copies as without
+    traced = {}
+    for engine, genes in (("batch", None), ("batch", meta_genes),
+                          ("hybrid", None)):
         fasta, bam, _ = data["metagenome"]
-        prof_out = os.path.join(WORK, "metagenome", f"prof_{engine}.IS")
+        tag = f"{engine}{' -g' if genes else ''}"
+        prof_out = os.path.join(WORK, "metagenome",
+                                f"prof_{engine}{'_g' if genes else ''}.IS")
         trace = os.path.join(WORK, f"trace_{engine}.json")
         t0 = time.perf_counter()
         got = device_copies(torch, lambda: run_profile(
-            bam, fasta, prof_out, engine, "cuda"),
-            trace if engine == "batch" else None)
+            bam, fasta, prof_out, engine, "cuda", genes),
+            trace if tag == "batch" else None)
         wall = time.perf_counter() - t0
+        traced[tag] = got
         if got is None:
-            log("e2e", f"metagenome --engine {engine} under torch.profiler: "
+            log("e2e", f"metagenome --engine {tag} under torch.profiler: "
                        f"no device activity recorded (not measured)")
             continue
-        log("e2e", f"metagenome --engine {engine} under torch.profiler "
+        log("e2e", f"metagenome --engine {tag} under torch.profiler "
                    f"(wall {wall:.2f} s): D2H {got['DtoH'][0]} copies "
                    f"{got['DtoH'][1]:.3f} ms, H2D {got['HtoD'][0]} copies "
                    f"{got['HtoD'][1]:.3f} ms, kernels {got['kernels'][0]} "
                    f"launches {got['kernels'][1]:.3f} ms; device busy "
                    f"{got['DtoH'][1] + got['HtoD'][1] + got['kernels'][1]:.3f}"
                    f" ms")
-        if engine == "batch":
+        if tag == "batch":
             # the measurement that decides whether the sparse count wire
             # (K8) is worth porting: H2D against kernel time per chunk
             for i, (b, h_ms, n_k, k_ms, d_ms) in enumerate(
@@ -1523,6 +1664,15 @@ def phase_end_to_end(torch):
                            f"({b / max(h_ms, 1e-9) / 1e6:.1f} GB/s), "
                            f"{n_k} kernels {k_ms:.4f} ms, D2H {d_ms:.4f} "
                            f"ms")
+
+    if traced["batch"] and traced["batch -g"]:
+        copies = {k: [traced[t][k][0] for t in ("batch", "batch -g")]
+                  for k in ("HtoD", "DtoH")}
+        check(all(a == b for a, b in copies.values()),
+              f"metagenome --engine batch: device copies (without -g, "
+              f"with -g) {copies}")
+        log("e2e", f"metagenome --engine batch: the same device copies "
+                   f"with -g as without under torch.profiler {copies}")
 
     # the deep input on the CPU with the device linkage engine forced
     PL.resolve_linkage_engine = lambda engine, device, n_pairs: "device"
@@ -1547,7 +1697,8 @@ def phase_end_to_end(torch):
         C.reset_launch_counts()
         CC.reset_launch_counts()
         CL.reset_launch_counts()
-        dense[name] = run(name, "dense")
+        dense[name] = run(name, "dense", genes=(
+            meta_genes if name == "metagenome" else None))
         got = {**C.launch_counts(), **CC.launch_counts(),
                **CL.launch_counts()}
         chunks = S * -(-L // (1 << 20))
@@ -1557,15 +1708,33 @@ def phase_end_to_end(torch):
             want = chunks if k in ("site_stats", "clonR") else 0
             check(n == want, f"{name} --engine dense: kernel {k} launched "
                              f"{n} times, expected {want}")
-    compare_tables(outs["metagenome"], dense["metagenome"])
+    compare_tables(with_genes, dense["metagenome"], tables=GENE_TABLES)
     rare = ("nucl_diversity_rarefied", "nucl_diversity_rarefied_median")
     diffs = compare_tables(outs["isolate"], dense["isolate"], skip=rare)
-    log("e2e", "metagenome: dense and batch tables agree within the "
+    log("e2e", "metagenome -g: dense and batch tables (gene_info too) "
+               "agree within the "
                "reference's cross-engine tolerances; isolate: dense and "
                "hybrid the same, except the rarefied columns, drawn per 1 Mb "
                "chunk by the dense engine and once per scaffold by the "
                "hybrid engine (max abs difference " + ", ".join(
                    f"{k} {v:.3g}" for k, v in diffs.items()) + ")")
+
+    # profile_genes with the GenBank file over the card's profile of the
+    # metagenome, whose covT is stored as a pickle where h5py is missing
+    covt = ProfileDir(outs["metagenome"])._get_attributes().loc[
+        "covT", "value"]
+    t0 = time.perf_counter()
+    with FailureLog() as failed:
+        check(main(["profile_genes", "-i", outs["metagenome"], "-g",
+                    meta_gb]) == 0, "profile_genes failed")
+    pg_s = time.perf_counter() - t0
+    check(not failed.lines, f"profile_genes: failures logged: "
+                            f"{failed.lines[:3]}")
+    types = check_gene_info(outs["metagenome"], meta_gb)
+    log("e2e", f"profile_genes -g {os.path.basename(meta_gb)} over the "
+               f"metagenome's profile (covT stored as "
+               f"{os.path.splitext(covt)[1]}): {pg_s:.3f} s, gene_info for "
+               f"every gene; SNV mutation types {types}")
     return launches, ld_args[-1], captured
 
 

@@ -1,7 +1,8 @@
 """
-Command-line interface of the port: the `profile`, `compare` and
-`genome_wide` subcommands of instrain_tpu's CLI (reference:
-inStrain/argumentParser.py:55-398), with the same flags plus --device.
+Command-line interface of the port: the `profile`, `compare`,
+`genome_wide`, `profile_genes` and `parse_annotations` subcommands of
+instrain_tpu's CLI (reference: inStrain/argumentParser.py:55-398), with
+the same flags plus --device where kernels run.
 Flags whose feature is not ported yet are accepted by the parser and raise
 an error that names the ROADMAP.md item (profile/pipeline.py and
 compare/pipeline.py: check_supported); none is ignored.
@@ -11,6 +12,8 @@ compare/pipeline.py: check_supported); none is ignored.
     instrain_tpu_torch compare -i A.IS B.IS -o OUT.RC -s STB \\
         --skip_plot_generation --device cuda
     instrain_tpu_torch genome_wide -i OUT.IS -s STB
+    instrain_tpu_torch profile_genes -i OUT.IS -g GENES.fna
+    instrain_tpu_torch parse_annotations -i A.IS B.IS -a ANNO.csv -o OUT
 """
 
 from __future__ import annotations
@@ -77,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     add_variant(p)
 
     p.add_argument("-g", "--gene_file", default=None,
-                   help="genes to profile (not ported yet: raises)")
+                   help="prodigal .fna / GenBank genes file: also profile "
+                        "each gene (coverage, diversity, SNV types, "
+                        "dN/dS) on the host")
     add_stb(p)
     add_mm(p)
 
@@ -197,6 +202,39 @@ def build_parser() -> argparse.ArgumentParser:
     add_stb(p)
     add_mm(p)
     add_system(p)
+
+    p = sub.add_parser(
+        "profile_genes",
+        help="(re)run gene profiling over an existing profile",
+        description="Load covT/clonT/SNVs from a stored profile and "
+                    "compute per-gene metrics for -g (on the host).")
+    p.add_argument("-i", "--IS", required=True,
+                   help="an existing profile directory")
+    p.add_argument("-g", "--gene_file", default=None,
+                   help="prodigal .fna / GenBank genes file")
+    p.add_argument("--store_everything", action="store_true",
+                   help="store extra per-gene intermediates")
+    add_system(p)
+
+    p = sub.add_parser(
+        "parse_annotations",
+        help="aggregate per-gene annotations across samples",
+        description="Combine gene annotation CSVs (gene,anno) with "
+                    "profiled gene abundances into per-sample annotation "
+                    "tables.")
+    p.add_argument("-i", "--input", nargs="*", required=True,
+                   help="profile directories (with genes profiled)")
+    p.add_argument("-a", "--annotations", nargs="*", required=True,
+                   help="gene annotation CSVs (columns: gene, anno)")
+    p.add_argument("-o", "--output", default="annotation_output",
+                   help="output directory")
+    add_system(p)
+    p.add_argument("-b", "--min_genome_breadth", default=0.5, type=float,
+                   help="skip genes of genomes below this breadth")
+    p.add_argument("-g", "--min_gene_breadth", default=0.8, type=float,
+                   help="skip genes below this breadth")
+    p.add_argument("--store_rawdata", action="store_true",
+                   help="also store the gene -> annotations dictionary")
     return parser
 
 
@@ -335,6 +373,20 @@ def main(argv=None):
         setup_logger(isdir.get_location("log") + "log.log")
         genome_wide(isdir, stb=args.stb, mm_level=args.mm_level,
                     skip_mm_profiling=args.skip_mm_profiling)
+
+    elif args.operation == "profile_genes":
+        from .profile.genes import profile_genes_from_store
+        isdir = ProfileDir(args.IS)
+        setup_logger(isdir.get_location("log") + "log.log")
+        profile_genes_from_store(isdir, args.gene_file,
+                                 store_everything=args.store_everything)
+
+    elif args.operation == "parse_annotations":
+        from .compare.annotations import parse_annotations
+        parse_annotations(args.input, args.annotations, args.output,
+                          min_genome_breadth=args.min_genome_breadth,
+                          min_gene_breadth=args.min_gene_breadth,
+                          store_rawdata=args.store_rawdata)
     return 0
 
 

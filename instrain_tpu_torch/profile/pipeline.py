@@ -12,8 +12,10 @@ scaffolds per launch, the hybrid engine one — build the SNV, scaffold
 and linkage tables on the host (linkage of scaffolds with many captured
 pairs through the device LD kernel, K6), store the profile directory and
 its TSVs, and (unless --skip_genome_wide) roll the scaffolds up to
-genomes (profile/genome.py). Genes and plots are not ported yet: asking
-for them raises (ROADMAP.md).
+genomes (profile/genome.py). With -g, each scaffold's genes are profiled
+on the host from what its engine brought back (profile/genes.py), inside
+the tables step. Plots are not ported yet: asking for them raises
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 from . import compact as compact_mod
+from . import genes as genes_mod
 from . import genome as genome_mod
 from . import linkage as linkage_mod
 from . import tables
@@ -45,7 +48,9 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
 # per phase (decode, filter, pileup, kernels, tables, store, genome) of a
-# profile run; None adds no timers. chip_smoke.py reads it.
+# profile run, and in "genes" the gene file's parse and the gene calls
+# (the calls lie inside "tables"); None adds no timers. chip_smoke.py
+# reads it.
 PHASES: Optional[Dict[str, float]] = None
 
 
@@ -81,9 +86,6 @@ def check_supported(cfg: ProfileConfig) -> None:
         raise unported(f"--engine {cfg.engine}",
                        "the dense engine is the Hopper counterpart of "
                        "--engine pallas: use --engine dense")
-    if cfg.gene_file is not None:
-        raise unported("gene profiling (-g/--gene_file)",
-                       "item 4: genes and genome")
     if not cfg.skip_plot_generation:
         raise unported("plots (pass --skip_plot_generation)",
                        "item 6: the rest of the CLI")
@@ -172,6 +174,7 @@ class ScaffoldProfileResult:
     cumulative_snv_table: pd.DataFrame
     cumulative_scaffold_table: pd.DataFrame
     linkage_table: pd.DataFrame
+    gene_results: Optional[tuple] = None
 
 
 def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
@@ -245,25 +248,32 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
     freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=device)
 
+    gene_data = None
+    if cfg.gene_file is not None:
+        with _phase("genes"):
+            gene_data = genes_mod.parse_genes(cfg.gene_file)
+
     engine = resolve_run_engine(cfg.engine, device, len(keep))
     if engine == "dense":
         finals = []
         for name in keep:
             logging.debug(get_worker_log("SplitProfile", name, "start"))
             res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
-                                        null_t, freq_t, device)
+                                        null_t, freq_t, device, gene_data)
             logging.debug(get_worker_log("SplitProfile", name, "end"))
             if res is not None:
                 with _phase("tables"):
                     finals.append(_finalize_result(res, cfg))
     else:
         finals = _profile_scaffolds_compact(bam, pairs, registry, keep, cfg,
-                                            engine, null_t, freq_t, device)
+                                            engine, null_t, freq_t, device,
+                                            gene_data)
     with _phase("store"):
-        _store_results(isdir, finals, cfg)
+        _store_results(isdir, finals, cfg, gene_data)
         log_checkpoint("main_profile", "profile_scaffolds", "end")
         # outputs (reference: controller.py:352-360)
-        for t in ["SNVs", "scaffold_info", "linkage", "mapping_info"]:
+        for t in ["SNVs", "scaffold_info", "linkage", "gene_info",
+                  "mapping_info"]:
             gen.generate(isdir, t, force_compress=cfg.force_compress)
     if not cfg.skip_genome_wide:
         # instrain_tpu/profile/pipeline.py:391-396
@@ -339,18 +349,19 @@ def _inject_failure(name: str, cfg) -> None:
 
 
 def _profile_one_scaffold(bam, pairs, registry, name, cfg, null_lut,
-                          freq_lut, device):
+                          freq_lut, device, gene_data):
     """One scaffold through the dense engine, its failure contained."""
     try:
         return _profile_one_scaffold_inner(bam, pairs, registry, name, cfg,
-                                           null_lut, freq_lut, device)
+                                           null_lut, freq_lut, device,
+                                           gene_data)
     except Exception as e:
         _contain(name, e)
         return None
 
 
 def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
-                                freq_lut, device):
+                                freq_lut, device, gene_data):
     _inject_failure(name, cfg)
     rid = bam.name_to_ref_id.get(name)
     if rid is None:
@@ -367,7 +378,8 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
                                rarefied_coverage=cfg.rarefied_coverage,
                                seed=cfg.seed, device=device)
     with _phase("tables"):
-        return _result_from_stats(name, L, stats, ref_codes, cfg, device)
+        return _result_from_stats(name, L, stats, ref_codes, cfg, device,
+                                  gene_data)
 
 
 def _build_pileup(bam, pairs, rid, L, cfg):
@@ -398,7 +410,8 @@ def _oversize(pairs, rid, L, cfg) -> bool:
 
 
 def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
-                               null_lut, freq_lut, device) -> List[Dict]:
+                               null_lut, freq_lut, device,
+                               gene_data) -> List[Dict]:
     """The batch and hybrid engines, through one streaming loop
     (compact.run_site_stats_compact_stream): pileups are built as the
     engine asks for them, and each chunk's scaffolds are turned into
@@ -409,8 +422,9 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     path afterwards: for batch by the JAX package's estimate before the
     pileup (_oversize), for hybrid by the pileup's own extent
     (resolve_engine). A scaffold whose pileup or tables fail is logged and
-    dropped; a kernel or CUDA fault fails the run. Returns the finalized
-    payloads in `keep` order."""
+    dropped; a kernel or CUDA fault fails the run. With gene_data, a
+    chunk's genes are profiled here too, while the next chunk runs.
+    Returns the finalized payloads in `keep` order."""
     metas: Dict[int, tuple] = {}
     dense: List[tuple] = []
     finals: Dict[int, Dict] = {}
@@ -451,7 +465,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
         with _phase("tables"):
             try:
                 finals[i] = _finalize_result(_result_from_stats(
-                    name, L, stats, ref_codes, cfg, device), cfg)
+                    name, L, stats, ref_codes, cfg, device, gene_data), cfg)
             except Exception as e:
                 _contain(name, e)
         logging.debug(get_worker_log("SplitProfile", name, "end"))
@@ -471,9 +485,10 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     return [finals[i] for i in sorted(finals)]
 
 
-def _result_from_stats(name, L, stats, ref_codes, cfg, device):
-    """SNP / SNV / coverage tables and linkage for one scaffold, from
-    compact or dense stats."""
+def _result_from_stats(name, L, stats, ref_codes, cfg, device, gene_data):
+    """SNP / SNV / coverage tables, linkage and, where the scaffold has
+    genes, the gene tables for one scaffold, from compact or dense
+    stats."""
     if isinstance(stats, compact_mod.CompactStats):
         snp, csnv = compact_mod.snp_tables_compact(stats, ref_codes)
         ctable = compact_mod.coverage_table_compact(stats)
@@ -484,10 +499,20 @@ def _result_from_stats(name, L, stats, ref_codes, cfg, device):
     ws = linkage_mod.window_starts_for(L, cfg.window_length)
     ld = linkage_mod.calculate_linkage(stats, ws, min_snp=int(cfg.min_snp),
                                       seed=cfg.seed, device=device)
+    gene_results = None
+    if gene_data is not None and name in gene_data.scaff2genes:
+        with _phase("genes"):
+            try:
+                gene_results = genes_mod.profile_genes_for_scaffold(
+                    name, gene_data, stats, csnv)
+            except Exception as e:
+                # host code only: a gene failure does not drop the
+                # scaffold (reference: profile_utilities.py:388-396)
+                log_failure("GeneException", name, str(e))
     return ScaffoldProfileResult(
         name=name, length=L, stats=stats, snp_table=snp,
         cumulative_snv_table=csnv, cumulative_scaffold_table=ctable,
-        linkage_table=ld)
+        linkage_table=ld, gene_results=gene_results)
 
 
 _SPECIAL_DESCR = {
@@ -511,13 +536,14 @@ def _finalize_result(r: ScaffoldProfileResult, cfg) -> Dict:
         clonT=tables.clonT_view(r.stats),
         clonTR=tables.clonT_view(r.stats, rarefied=True),
         reads_to_snvs=_reads_to_snvs(r.stats),
+        gene_results=r.gene_results,
     )
     if cfg.store_everything:
         out["counts_sum"] = r.stats.pileup.counts.sum(axis=0).T
     return out
 
 
-def _store_results(isdir: ProfileDir, finals: List[Dict], cfg):
+def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data):
     """reference: profile_utilities.gen_snv_profile (614-717)."""
     def cat(dfs):
         dfs = [d for d in dfs if d is not None and len(d)]
@@ -568,6 +594,13 @@ def _store_results(isdir: ProfileDir, finals: List[Dict], cfg):
     isdir.store("scaffold_2_mm_2_read_2_snvs",
                 {r["name"]: r["reads_to_snvs"] for r in finals}, "pickle",
                 "scaffold -> mm -> read -> SNVs (linkage capture)")
+
+    if gene_data is not None:
+        # instrain_tpu/profile/pipeline.py:866-880
+        genes_mod.store_gene_tables(
+            isdir, cfg.gene_file, gene_data,
+            [cat([r["gene_results"][i] for r in finals
+                  if r["gene_results"] is not None]) for i in range(4)])
 
 
 def _reads_to_snvs(stats: ScaffoldStats) -> Dict[int, Dict[str, list]]:

@@ -3,10 +3,10 @@ User-facing output table generation for `profile` (reference:
 SNVprofile.generate, SNVprofile.py:192-443) with the exact column orders,
 plus the non-redundant (highest-mm) views (SNVprofile.py:471-548). The
 counterpart of instrain_tpu/store/generate.py for the tables this port
-writes: profile's (SNVs, scaffold_info, linkage, mapping_info), the
-genome-wide genome_info, and compare's (comparisonsTable,
-pairwise_SNP_locations, pooled_SNV_info, pooled_SNV_data and its keys);
-gene_info comes with the genes module (ROADMAP.md).
+writes: profile's (SNVs, scaffold_info, linkage, gene_info,
+mapping_info), the genome-wide genome_info, and compare's
+(comparisonsTable, pairwise_SNP_locations, pooled_SNV_info,
+pooled_SNV_data and its keys).
 """
 
 from __future__ import annotations
@@ -43,6 +43,13 @@ COLUMN_ORDERS = {
                 "allele_A", "allele_a",
                 "allele_B", "allele_b",
                 "countab", "countAb", "countaB", "countAB", "total"],
+    "gene_info": ["scaffold", "gene", "gene_length",
+                  "coverage", "breadth", "breadth_minCov", "nucl_diversity",
+                  "start", "end", "direction", "partial",
+                  "dNdS_substitutions", "pNpS_variants",
+                  "SNV_count", "SNV_S_count", "SNV_N_count",
+                  "SNS_count", "SNS_S_count", "SNS_N_count",
+                  "divergent_site_count"],
     "genome_info": ["genome", "coverage", "breadth", "nucl_diversity",
                     "length", "true_scaffolds", "detected_scaffolds",
                     "coverage_median", "coverage_std", "coverage_SEM",
@@ -148,6 +155,10 @@ def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
                               on=["scaffold", "position"])
         if name in COLUMN_ORDERS:
             db = reorder_columns(db, COLUMN_ORDERS[name])
+    elif name == "gene_info":
+        db = _gene_info(isdir)
+        if db is None:
+            return
     elif name == "genome_info":
         db = _genome_info(isdir.get("genome_level_info"), mm_level)
     elif name == "pairwise_SNP_locations":
@@ -173,6 +184,31 @@ def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
         logging.info(f"Could not create {name}")
         return
     _write(isdir, name, db, force_compress)
+
+
+def _gene_info(isdir: ProfileDir) -> Optional[pd.DataFrame]:
+    """gene_info: the gene table with each per-gene table at its highest
+    mm, genes without coverage left out (instrain_tpu/store/generate.py:
+    146-164); None where no genes were profiled."""
+    gdb = isdir.get("genes_table")
+    if gdb is None:
+        logging.info("Cannot generate genes_table; no genes profiled")
+        return None
+    for thing in ["genes_coverage", "genes_clonality", "genes_SNP_count"]:
+        db2 = isdir.get(thing)
+        if db2 is None or len(db2) == 0:
+            continue
+        db2 = db2.sort_values("mm").drop_duplicates(subset=["gene"],
+                                                    keep="last")
+        del db2["mm"]
+        gdb = pd.merge(gdb, db2, on="gene", how="left")
+    for c in ["N_sites", "S_sites"]:
+        if c in gdb.columns:
+            del gdb[c]
+    db = reorder_columns(gdb, COLUMN_ORDERS["gene_info"])
+    if db is not None and len(db) > 0 and "coverage" in db:
+        db = db[db["coverage"] > 0]
+    return db
 
 
 def _genome_info(db: Optional[pd.DataFrame], mm_level: bool):

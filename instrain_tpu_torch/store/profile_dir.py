@@ -22,6 +22,7 @@ from either file.
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
@@ -170,6 +171,21 @@ class ProfileDir:
     def get_output_base(self) -> str:
         return (self.get_location("output") +
                 os.path.basename(self.get("location")) + "_")
+
+    def load_output(self, name: str) -> pd.DataFrame:
+        """Load an already-generated output TSV
+        (reference: SNVprofile.load_output, 168-190)."""
+        loc = self.get_output_base() + name
+        files = glob.glob(loc + "*")
+        if len(files) > 1:
+            # the reference's assertion, which parse_annotations catches
+            raise AssertionError(files)
+        if not files:
+            logging.error(f"{name} does not exist")
+            return pd.DataFrame()
+        if name == "mapping_info":
+            return pd.read_csv(files[0], sep="\t", header=1)
+        return pd.read_csv(files[0], sep="\t")
 
     # ---------- special ----------
 

@@ -13,6 +13,10 @@ sample mapped to it, and a scaffold-to-genome file; each genome has two
 strain haplotypes, and each sample carries one of them at its own
 coverage.
 
+synth_genes: gene files for a synth FASTA — a prodigal-style .fna and a
+minimal GenBank file — laid out so that profile -g meets every case of
+the gene code (see its docstring).
+
 The records are built with numpy in blocks of reads; no .bai index is
 written.
 """
@@ -224,6 +228,111 @@ _HDR = np.dtype([("block_size", "<i4"), ("ref_id", "<i4"), ("pos", "<i4"),
                  ("n_cigar_op", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
                  ("next_ref_id", "<i4"), ("next_pos", "<i4"),
                  ("tlen", "<i4")])
+
+
+_GENE_COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
+
+
+def _gene_layout(rng, L: int, past_end: bool):
+    """[(start, end, strand)] 0-based inclusive genes tiling a scaffold of
+    L bp: 300-1197 bp each, on either strand; between two genes an
+    overlap of 90-299 bp (40 %), an intergenic gap of 150-599 bp (35 %)
+    or 0-29 bp. With past_end, the last gene starts at least 150 bp
+    before the end and runs 60 bp past it."""
+    genes = []
+    pos = int(rng.integers(0, 200))
+    while True:
+        end = pos + 3 * int(rng.integers(100, 400)) - 1
+        strand = "-1" if rng.random() < 0.5 else "1"
+        if end >= L - 1:
+            if past_end:
+                genes.append((min(pos, L - 150), L - 1 + 60, strand))
+            return genes
+        genes.append((pos, end, strand))
+        r = rng.random()
+        gap = (-int(rng.integers(90, 300)) if r < 0.4 else
+               int(rng.integers(150, 600)) if r < 0.75 else
+               int(rng.integers(0, 30)))
+        pos = max(end + 1 + gap, pos + 1)
+
+
+def _genbank_record(name: str, seq: bytes, features: List[str]) -> str:
+    lines = [f"LOCUS       {name:<16} {len(seq):>11} bp    DNA     linear"
+             f"   UNK 01-JAN-1980",
+             f"DEFINITION  synthetic scaffold {name}.",
+             f"ACCESSION   {name}",
+             f"VERSION     {name}",
+             "FEATURES             Location/Qualifiers",
+             f"     source          1..{len(seq)}",
+             '                     /mol_type="genomic DNA"']
+    lines += features
+    lines.append("ORIGIN")
+    low = seq.decode().lower()
+    for i in range(0, len(low), 60):
+        groups = " ".join(low[j:j + 10] for j in range(i, min(i + 60,
+                                                              len(low)), 10))
+        lines.append(f"{i + 1:>9} {groups}")
+    lines.append("//")
+    return "\n".join(lines) + "\n"
+
+
+def synth_genes(fasta: str, seed: int = 0) -> Tuple[str, str]:
+    """Write <stem>.genes.fna (prodigal-style) and <stem>.genes.gb
+    (GenBank) beside a synth FASTA; returns their paths. Every scaffold
+    but the last gets genes from _gene_layout: both strands (the .fna
+    holds a minus-strand gene's reverse complement, as prodigal writes
+    it), overlapping genes, intergenic gaps, and on the first scaffold a
+    last gene running past the scaffold's end (its header says
+    partial=01; its sequence is padded with N). One more gene lies on
+    scaffold 'scaf_absent', which the FASTA does not hold. The GenBank
+    file has the same genes as CDS features: complement(...) for the
+    minus strand, a '<' start on each record's first gene and a '>' end
+    on the gene past the end, and the third gene of the first scaffold
+    as a join(...) of two spans, written over two lines."""
+    from .io.fasta import read_fasta
+    rng = np.random.default_rng(seed)
+    seqs = {n: s.tobytes() for n, s in read_fasta(fasta).items()}
+    names = list(seqs)
+    stem = os.path.splitext(fasta)[0]
+    fna, gb = stem + ".genes.fna", stem + ".genes.gb"
+    absent = BASES[rng.integers(0, 4, 300)].tobytes()
+    layouts = {n: _gene_layout(rng, len(seqs[n]), past_end=(i == 0))
+               for i, n in enumerate(names[:-1])}
+    layouts["scaf_absent"] = [(0, 299, "1")]
+    seqs["scaf_absent"] = absent
+    records = []
+    with open(fna, "w") as f:
+        for si, (name, genes) in enumerate(layouts.items()):
+            seq = seqs[name]
+            features = []
+            for k, (a, b, strand) in enumerate(genes, start=1):
+                gene = f"{name}_{k}"
+                body = seq[a:b + 1].ljust(b - a + 1, b"N")
+                if strand == "-1":
+                    body = body.translate(_GENE_COMP)[::-1]
+                partial = "01" if b >= len(seq) else "00"
+                f.write(f">{gene} # {a + 1} # {b + 1} # {strand} # "
+                        f"ID={si + 1}_{k};partial={partial};start_type=ATG;"
+                        f"rbs_motif=None;rbs_spacer=None;gc_cont=0.500\n")
+                for i in range(0, len(body), 60):
+                    f.write(body[i:i + 60].decode() + "\n")
+                lo = ("<" if k == 1 else "") + str(a + 1)
+                hi = (">" if b >= len(seq) else "") + str(b + 1)
+                if si == 0 and k == 3:
+                    cut = a + (b - a) // 3
+                    loc = (f"join({lo}..{cut},\n{' ' * 21}"
+                           f"{cut + 31}..{hi})")
+                else:
+                    loc = f"{lo}..{hi}"
+                if strand == "-1":
+                    loc = f"complement({loc})"
+                features += [f"     CDS             {loc}",
+                             f'                     /gene="{gene}"',
+                             f'                     /locus_tag="{gene}"']
+            records.append(_genbank_record(name, seq, features))
+    with open(gb, "w") as f:
+        f.write("".join(records))
+    return fna, gb
 
 
 def site_stats_inputs(M: int, L: int, seed: int):
