@@ -10,7 +10,8 @@ Phases (each prints its own lines; the first failure exits non-zero):
   1. environment: torch/CUDA versions, the card, host packages;
   2. build: the CUDA kernels (nvcc, sm_90a, one process per source) and
      the native BAM decoder (g++) from this checkout's sources, with the
-     seconds each took;
+     seconds each took; then `check_deps`, whose report names the card
+     and the CUDA build and finds both libraries built;
   3. kernels: the site-stats and clonR kernels against their plain
      PyTorch versions on the card (M in {1, 8}, L in {4096, 1048576,
      1237}, with reference code 4, coverage above the LUT cap and
@@ -59,13 +60,16 @@ Phases (each prints its own lines; the first failure exits non-zero):
      the scaffolds past the linkage bound, one copy to the card and one
      back for each device linkage call, and the absence of scaffold
      failures; then the metagenome with -g (synth_genes' prodigal file)
-     through --engine auto (batch): a gene_info row for every gene of the
-     profiled scaffolds, each kernel launched as often as without -g, no
-     scaffold or gene failure, and its wall and genes phase beside the
-     run without -g; the metagenome with -g through --engine hybrid (TSVs
-     and gene_info byte-identical to the batch run), both engines' device
-     copies under torch.profiler (batch with -g too: the same copies as
-     without), the deep input on --device cpu
+     and the plots through --engine auto (batch): a gene_info row for
+     every gene of the profiled scaffolds, each kernel launched as often
+     as without -g and plots, no scaffold or gene failure, its wall and
+     genes phase beside the run without -g, and the nine figures where
+     matplotlib imports (where it does not, `Plotting failed` logged and
+     the run's checks as before); the metagenome with -g through
+     --engine hybrid (TSVs and gene_info byte-identical to the batch
+     run), both engines' device copies under torch.profiler (batch with
+     -g and the plots too: the same copies as without), the deep input
+     on --device cpu
      with the device linkage engine forced (TSVs byte-identical), and the
      metagenome and the isolate through --engine dense (launch counts
      reset and read around each run: site_stats and clonR once per 1 Mb
@@ -75,17 +79,27 @@ Phases (each prints its own lines; the first failure exits non-zero):
      isolate apart); `profile_genes` with synth_genes' GenBank file over
      the metagenome's profile (covT a pickle where h5py is missing): a
      gene_info row for every gene, no failure; then compare: 8 samples of
-     the metagenome (4 genomes, 10-40x) profiled on the card with
-     genome-wide aggregation, and compared (with -s, --bams,
+     the metagenome (4 genomes, 10-40x, each BAM with its .bai: a ranged
+     decode of half its scaffolds holds the full decode's records)
+     profiled on the card with genome-wide aggregation, and compared
+     (with -s, --bams,
      --store_mismatch_locations and --store_coverage_overlap) on the card
      through the overlap kernel (launch counts reset just before and read
      just after: once per comparison group), with the host engine, on
      --device cpu and with --engine auto (a launch per group from its
      bound on), every TSV byte for byte, a comparison row per (scaffold,
-     pair, mm level) and no scaffold failure. The batch engine's profiled
-     run also reports, per chunk, its H2D bytes and time beside its
-     kernels' (from the trace);
-  5. timing: select_rows and masked_median at the inputs compact_from_full
+     pair, mm level), no scaffold failure, every pooling decode ranged
+     (the pooling phase's seconds printed), and the device run drawing
+     the dendrograms (where matplotlib imports; else the failure logged).
+     The batch engine's profiled run also reports, per chunk, its H2D
+     bytes and time beside its kernels' (from the trace);
+  5. host commands: quick_profile (a coverm_raw.tsv row per scaffold),
+     filter_reads (mapping_info.csv equal to the profile's) and other
+     --run_statistics over the metagenome, and the rarefaction_curve
+     script on the card over the small input at fractions 0.5 and 1.0
+     (its site_stats launches counted; its 1.0 row against the small
+     input's profile);
+  6. timing: select_rows and masked_median at the inputs compact_from_full
      got in the three auto runs (the metagenome's largest chunk, the
      isolate, the deep input), at a 52 x 40 kb chunk and at one segment
      of M = 8, L = 2^20: the wrapper's time and its launches' device time
@@ -1135,13 +1149,16 @@ def read_table(out, name):
                        else 0)
 
 
-def run_profile(bam, fasta, out, engine, device="cuda", genes=None):
+def run_profile(bam, fasta, out, engine, device="cuda", genes=None,
+                plots=False):
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.profile import pipeline
     pipeline.PHASES = {}
+    flags = FLAGS if not plots else [f for f in FLAGS
+                                     if f != "--skip_plot_generation"]
     t0 = time.perf_counter()
     rc = main(["profile", bam, fasta, "-o", out, "--device", device,
-               "--engine", engine] + FLAGS + (["-g", genes] if genes else []))
+               "--engine", engine] + flags + (["-g", genes] if genes else []))
     torch_sync()
     wall = time.perf_counter() - t0
     check(rc == 0, f"profile exited {rc}")
@@ -1306,19 +1323,20 @@ def outputs(out):
 
 
 class FailureLog:
-    """Collects the FAILURE lines logged while it is entered (a scaffold's
-    or a gene's failure), whatever file the run logs to. They are DEBUG
-    records: profile lets them through the root logger while it runs, and
-    the CLI's logger setup (basicConfig at DEBUG, at the smoke's first
-    call) for the other subcommands."""
+    """Collects the lines holding `needle` logged while it is entered (by
+    default FAILURE: a scaffold's or a gene's failure), whatever file the
+    run logs to. FAILURE lines are DEBUG records: profile lets them
+    through the root logger while it runs, and the CLI's logger setup
+    (basicConfig at DEBUG, at the smoke's first call) for the other
+    subcommands."""
 
-    def __init__(self):
+    def __init__(self, needle="FAILURE"):
         import logging
         self.lines = []
         self.handler = logging.Handler(logging.DEBUG)
         self.handler.emit = lambda r: (
             self.lines.append(r.getMessage())
-            if "FAILURE" in r.getMessage() else None)
+            if needle in r.getMessage() else None)
 
     def __enter__(self):
         import logging
@@ -1329,6 +1347,31 @@ class FailureLog:
         import logging
         logging.getLogger("").removeHandler(self.handler)
         return False
+
+
+def have_matplotlib():
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def check_profile_plots(out, phases):
+    """The nine figures of a profile run with -g, each over 1,000 bytes,
+    where matplotlib imports; where it does not, the run's log holds
+    `Plotting failed`. Returns what to print."""
+    if not have_matplotlib():
+        with open(os.path.join(out, "log", "log.log")) as f:
+            check("Plotting failed" in f.read(),
+                  f"{out}: matplotlib is missing and the log holds no "
+                  f"'Plotting failed'")
+        return "plots: not drawn (no matplotlib); 'Plotting failed' logged"
+    figs = os.path.join(out, "figures")
+    sizes = {f: os.path.getsize(os.path.join(figs, f))
+             for f in os.listdir(figs)}
+    check(len(sizes) == 9 and min(sizes.values()) > 1000,
+          f"{out}: figures {sizes}, expected nine over 1,000 bytes")
+    return (f"plots: {len(sizes)} figures, {min(sizes.values())}-"
+            f"{max(sizes.values())} bytes, plots phase "
+            f"{phases.get('plots', 0.0):.3f} s")
 
 
 def check_gene_info(out, genes_file):
@@ -1432,6 +1475,7 @@ def phase_end_to_end(torch):
     small = os.path.join(WORK, "small")
     os.makedirs(small)
     fasta, bam, _ = synth(small, S=4, L=5000, COV=60, seed=3)
+    small_input = (fasta, bam)
     small_genes, _ = synth_genes(fasta, seed=0)
     anno = os.path.join(small, "anno.csv")
     for engine in ("dense", "hybrid", "batch"):
@@ -1483,14 +1527,14 @@ def phase_end_to_end(torch):
 
     timings = {}
 
-    def run(name, engine, device="cuda", genes=None):
+    def run(name, engine, device="cuda", genes=None, plots=False):
         S, L, cov = next(c[1:] for c in cases if c[0] == name)
         fasta, bam, n_pairs = data[name]
         out = os.path.join(WORK, name, f"{name}_{engine}_{device}"
                                        f"{'_g' if genes else ''}.IS")
         with D2HBytes() as d2h:
             wall, phases = run_profile(bam, fasta, out, engine, device,
-                                       genes)
+                                       genes, plots)
         timings[out] = (wall, phases)
         rows, snvs = check_outputs(out, S, cov)
         mi = read_table(out, "mapping_info")
@@ -1598,28 +1642,32 @@ def phase_end_to_end(torch):
           f"({linkage_choice[-1:]})")
     log("e2e", f"launches in the main paths, summed: {launches}")
 
-    # the metagenome through --engine auto (batch) with -g: the genes of a
-    # chunk are profiled on the host while the next chunk runs, so every
-    # kernel launches as often as without -g
+    # the metagenome through --engine auto (batch) with -g and the plots:
+    # the genes of a chunk are profiled on the host while the next chunk
+    # runs, and the figures are drawn from the stored profile, so every
+    # kernel launches as often as without either
     meta_genes, meta_gb = synth_genes(data["metagenome"][0], seed=0)
     C.reset_launch_counts()
     CC.reset_launch_counts()
     CL.reset_launch_counts()
-    with_genes = run("metagenome", "auto", genes=meta_genes)
+    with_genes = run("metagenome", "auto", genes=meta_genes, plots=True)
     got = {**C.launch_counts(), **CC.launch_counts(), **CL.launch_counts()}
     check(got == case_launches["metagenome"],
-          f"metagenome -g: launches {got}, without -g "
+          f"metagenome -g with plots: launches {got}, without either "
           f"{case_launches['metagenome']}")
     types = check_gene_info(with_genes, meta_genes)
     wall0 = timings[outs["metagenome"]][0]
     wall1, phases1 = timings[with_genes]
     n_genes = len(read_table(with_genes, "gene_info"))
-    log("e2e", f"metagenome --engine auto -g on {nvidia_smi_line()}: wall "
-               f"{wall1:.3f} s against {wall0:.3f} s without -g "
+    card = nvidia_smi_line()
+    log("e2e", f"metagenome --engine auto -g with plots on {card}: wall "
+               f"{wall1:.3f} s against {wall0:.3f} s without -g and plots "
                f"({wall1 - wall0:+.3f} s); genes phase (the gene file's "
                f"parse and the gene calls) {phases1.get('genes', 0.0):.3f} s "
-               f"for {n_genes} genes; launches {got}, as without -g; SNV "
-               f"mutation types {types}")
+               f"for {n_genes} genes; launches {got}, as without either; "
+               f"SNV mutation types {types}")
+    log("e2e", f"metagenome --engine auto -g on {card}: "
+               f"{check_profile_plots(with_genes, phases1)}")
 
     # the metagenome through the hybrid engine with -g: the same bytes
     hybrid = run("metagenome", "hybrid", genes=meta_genes)
@@ -1638,8 +1686,9 @@ def phase_end_to_end(torch):
                                 f"prof_{engine}{'_g' if genes else ''}.IS")
         trace = os.path.join(WORK, f"trace_{engine}.json")
         t0 = time.perf_counter()
+        # the run with -g draws the plots too
         got = device_copies(torch, lambda: run_profile(
-            bam, fasta, prof_out, engine, "cuda", genes),
+            bam, fasta, prof_out, engine, "cuda", genes, genes is not None),
             trace if tag == "batch" else None)
         wall = time.perf_counter() - t0
         traced[tag] = got
@@ -1669,10 +1718,11 @@ def phase_end_to_end(torch):
         copies = {k: [traced[t][k][0] for t in ("batch", "batch -g")]
                   for k in ("HtoD", "DtoH")}
         check(all(a == b for a, b in copies.values()),
-              f"metagenome --engine batch: device copies (without -g, "
-              f"with -g) {copies}")
+              f"metagenome --engine batch: device copies (without -g and "
+              f"plots, with both) {copies}")
         log("e2e", f"metagenome --engine batch: the same device copies "
-                   f"with -g as without under torch.profiler {copies}")
+                   f"with -g and plots as without under torch.profiler "
+                   f"{copies}")
 
     # the deep input on the CPU with the device linkage engine forced
     PL.resolve_linkage_engine = lambda engine, device, n_pairs: "device"
@@ -1735,7 +1785,128 @@ def phase_end_to_end(torch):
                f"metagenome's profile (covT stored as "
                f"{os.path.splitext(covt)[1]}): {pg_s:.3f} s, gene_info for "
                f"every gene; SNV mutation types {types}")
-    return launches, ld_args[-1], captured
+    paths = {"metagenome": data["metagenome"][:2],
+             "metagenome_profile": outs["metagenome"],
+             "small": small_input, "small_profile": os.path.join(
+                 small, "hybrid_cuda.IS")}
+    return launches, ld_args[-1], captured, paths
+
+
+# ---------------------------------------------------------------- host
+
+
+def phase_check_deps(torch):
+    """check_deps after the build: it names the card and the CUDA build,
+    and finds every library built for this checkout's sources."""
+    import contextlib
+    import io
+    from instrain_tpu_torch.cli import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(main(["check_deps"]) == 0, "check_deps failed")
+    report = buf.getvalue()
+    for line in report.splitlines():
+        log("deps", line)
+    check(f"CUDA device 0: {torch.cuda.get_device_name(0)}" in report and
+          f"CUDA build {torch.version.cuda}" in report,
+          "check_deps does not name the card and the CUDA build")
+    for name in ("CUDA kernels (instrain_kernels)",
+                 "native decoder (instrain_io)"):
+        check(f"{name}: built for the current sources" in report,
+              f"check_deps: {name} is not reported built")
+
+
+def phase_host_commands(torch, paths):
+    """The host-only subcommands over the metagenome (quick_profile,
+    filter_reads, other --run_statistics), and rarefaction_curve on the
+    card over the small input (its site_stats launches counted, its 1.0
+    row against the small input's profile on the card)."""
+    import contextlib
+    import io
+    import pandas as pd
+    from instrain_tpu_torch.auxiliary_scripts import rarefaction_curve
+    from instrain_tpu_torch.cli import main
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.store import generate as gen
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
+
+    card = nvidia_smi_line()
+    fasta, bam = paths["metagenome"]
+    prof = paths["metagenome_profile"]
+    qp = os.path.join(WORK, "quick_profile")
+    t0 = time.perf_counter()
+    check(main(["quick_profile", bam, fasta, "-o", qp]) == 0,
+          "quick_profile failed")
+    qp_s = time.perf_counter() - t0
+    cov = pd.read_csv(os.path.join(qp, "coverm_raw.tsv"), sep="\t")
+    genome = pd.read_csv(os.path.join(qp, "genomeCoverage.csv"))
+    check(len(cov) == 128 and (cov["Read Count"] > 0).all(),
+          f"quick_profile: {len(cov)} covered scaffolds, expected 128")
+    log("host", f"quick_profile over the metagenome on {card}'s host: "
+                f"{qp_s:.3f} s; {len(cov)} rows in coverm_raw.tsv, genome "
+                f"coverage {genome['coverage'].iloc[0]:.3f}, breadth "
+                f"{genome['breadth'].iloc[0]:.4f}")
+
+    fr = os.path.join(WORK, "filter_reads")
+    t0 = time.perf_counter()
+    check(main(["filter_reads", bam, fasta, "-o", fr]) == 0,
+          "filter_reads failed")
+    fr_s = time.perf_counter() - t0
+    got = pd.read_csv(os.path.join(fr, "mapping_info.csv"), sep="\t",
+                      header=1)
+    want = read_table(prof, "mapping_info")
+    got = got[list(want.columns)].sort_values("scaffold")
+    want = want.sort_values("scaffold")
+    check(len(want) == 129 and
+          got.reset_index(drop=True).equals(want.reset_index(drop=True)),
+          f"filter_reads: mapping_info.csv ({len(got)} rows) differs from "
+          f"the metagenome profile's ({len(want)} rows)")
+    log("host", f"filter_reads over the metagenome: {fr_s:.3f} s; "
+                f"mapping_info.csv holds the profile's {len(want)} rows")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(main(["other", "--run_statistics", prof]) == 0,
+              "other --run_statistics failed")
+    report = buf.getvalue()
+    check("Run report" in report and "main_profile" in report,
+          "other --run_statistics printed no report of main_profile")
+    log("host", f"other --run_statistics over the metagenome's log: "
+                f"{len(report.splitlines())} lines, sections " + ", ".join(
+                    l.strip(".: ") for l in report.splitlines()
+                    if l.startswith(".:: ")))
+
+    # rarefaction_curve through the kernels on the card
+    small_fasta, small_bam = paths["small"]
+    out = os.path.join(WORK, "rarefaction")
+    for mod in (C, CC, CL):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(rarefaction_curve.main([small_bam, small_fasta, "-o", out,
+                                      "-s", "0.5", "1.0"]) == 0,
+              "rarefaction_curve failed")
+    torch.cuda.synchronize()
+    rc_s = time.perf_counter() - t0
+    got = {**C.launch_counts(), **CC.launch_counts(), **CL.launch_counts()}
+    check(got["site_stats"] >= 2, f"rarefaction_curve: launches {got}, "
+                                  f"expected site_stats at each fraction")
+    rows = pd.read_csv(os.path.join(out, "rarefaction_curve.tsv"), sep="\t")
+    db = gen.nonredundant_scaffold_table(ProfileDir(paths["small_profile"]))
+    want = [1.0, float(db["coverage"].mean()), float(db["breadth"].mean()),
+            int(db["divergent_site_count"].sum())]
+    last = rows.iloc[-1].tolist()
+    # the means within the rounding of a sum in another row order
+    check(list(rows["fraction"]) == [0.5, 1.0] and last[3] == want[3] and
+          all(abs(a - b) <= 1e-12 * abs(b) for a, b in zip(last[1:3],
+                                                          want[1:3])),
+          f"rarefaction_curve: rows {rows.values.tolist()}, the 1.0 row "
+          f"against the small input's profile {want}")
+    log("host", f"rarefaction_curve --device cuda -s 0.5 1.0 over the small "
+                f"input on {card}: {rc_s:.3f} s, launches {got}; the 1.0 "
+                f"row equals the small input's profile: {want}")
 
 
 # ---------------------------------------------------------------- compare
@@ -1922,6 +2093,43 @@ def phase_compare_crossover(torch, card):
     return rows
 
 
+def check_ranged_decode(bam):
+    """A decode of every other scaffold through the BAM's .bai holds the
+    full decode's records of those scaffolds."""
+    import numpy as np
+    from instrain_tpu_torch.io.bai import find_bai
+    from instrain_tpu_torch.io.bam import decode_bam
+    check(find_bai(bam) is not None, f"{bam} has no .bai beside it")
+    t0 = time.perf_counter()
+    full = decode_bam(bam)
+    t1 = time.perf_counter()
+    names = full.ref_names[::2]
+    sub = decode_bam(bam, scaffolds=names)
+    t2 = time.perf_counter()
+    every = decode_bam(bam, scaffolds=full.ref_names)    # as pooling asks
+    t3 = time.perf_counter()
+    check(sub.ranged and every.ranged and not full.ranged,
+          "the decode was not ranged")
+    check(every.n_records == full.n_records,
+          f"a ranged decode of every scaffold holds {every.n_records} "
+          f"records, the full decode {full.n_records}")
+    for name in names:
+        a = np.flatnonzero(full.ref_id == full.name_to_ref_id[name])
+        b = np.flatnonzero(sub.ref_id == sub.name_to_ref_id[name])
+        check(len(a) == len(b) > 0 and all(
+            np.array_equal(getattr(full, f)[a], getattr(sub, f)[b])
+            for f in ("pos", "nm", "mapq", "flag", "ref_end")) and
+            [full.qnames[i] for i in full.qname_id[a]] ==
+            [sub.qnames[i] for i in sub.qname_id[b]],
+            f"{name}: the ranged decode's records differ from the full "
+            f"decode's")
+    log("e2e", f"{os.path.basename(bam)}: a ranged decode of {len(names)} "
+               f"scaffolds through its .bai ({t2 - t1:.3f} s) holds the "
+               f"full decode's records ({t1 - t0:.3f} s, "
+               f"{full.n_records} records); a ranged decode of all "
+               f"{len(full.ref_names)} scaffolds {t3 - t2:.3f} s")
+
+
 def phase_compare_e2e(torch):
     """compare end to end: 8 samples of the benchmark metagenome (128 x
     40 kb, 4 genomes of 32 scaffolds, 10-40x) profiled through the CLI on
@@ -1934,6 +2142,7 @@ def phase_compare_e2e(torch):
     import pandas as pd
     from instrain_tpu_torch.cli import main
     from instrain_tpu_torch.compare import pipeline as CP
+    from instrain_tpu_torch.compare import pooling as CPO
     from instrain_tpu_torch.kernels import cuda_compact as CCP
     from instrain_tpu_torch.kernels import cuda_compare as CC
     from instrain_tpu_torch.kernels import cuda_linkage as CL
@@ -1950,6 +2159,7 @@ def phase_compare_e2e(torch):
     log("e2e", f"synth_samples: 8 samples of 128 x 40 kb, 4 genomes, "
                f"{covs[0]:.0f}-{covs[-1]:.0f}x: "
                f"{time.perf_counter() - t0:.2f} s")
+    check_ranged_decode(bams[0])
     # the 8 profiles are set-up, not the path under test: one CLI process
     # each, all at once on the card
     profiles = [os.path.join(d, f"s{i}.IS") for i in range(8)]
@@ -2005,6 +2215,16 @@ def phase_compare_e2e(torch):
     real_log_failure = CP.log_failure
     CP.log_failure = lambda kind, unit, detail="": failures.append(
         (kind, unit, detail))
+    # pooling's decode of each sample: ranged through the sample's .bai
+    ranged = []
+    real_decode = CPO.decode_bam
+
+    def decode(*a, **k):
+        bam = real_decode(*a, **k)
+        ranged.append(bam.ranged)
+        return bam
+
+    CPO.decode_bam = decode
     runs = {}
     try:
         # auto shows the engine rule (a launch per group from its bound
@@ -2017,11 +2237,15 @@ def phase_compare_e2e(torch):
             for mod in (C, CCP, CL, CC):
                 mod.reset_launch_counts()
             CP.PHASES = {}
+            run_flags = lean if tag == "auto" else flags
+            if tag == "device":     # this run draws the dendrograms too
+                run_flags = [f for f in run_flags
+                             if f != "--skip_plot_generation"]
             t0 = time.perf_counter()
-            check(main(["compare", "-i"] + profiles + ["-o", out,
-                        "--device", device, "--engine", engine] +
-                       (lean if tag == "auto" else flags)) == 0,
-                  f"compare {tag} failed")
+            with FailureLog("plotting failed") as plot_log:
+                check(main(["compare", "-i"] + profiles + ["-o", out,
+                            "--device", device, "--engine", engine] +
+                           run_flags) == 0, f"compare {tag} failed")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = {**C.launch_counts(), **CCP.launch_counts(),
@@ -2029,6 +2253,8 @@ def phase_compare_e2e(torch):
             phases = dict(CP.PHASES)
             CP.PHASES = None
             runs[tag] = (out, got)
+            if tag == "device":
+                device_phases, device_plot_log = phases, plot_log.lines
             log("e2e", f"compare --engine {engine} --device {device}: wall "
                        f"{wall:.2f} s, overlap stage "
                        f"{phases.get('overlap', 0.0):.3f} s; phases (s): "
@@ -2036,7 +2262,27 @@ def phase_compare_e2e(torch):
                                    phases.items()) + f"; launches {got}")
     finally:
         CP.log_failure = real_log_failure
+        CPO.decode_bam = real_decode
     check(not failures, f"compare logged failures: {failures[:3]}")
+    check(ranged and all(ranged), f"pooling's decodes ranged: {ranged}")
+    card = nvidia_smi_line()
+    log("e2e", f"compare --engine device on {card}: pooling phase "
+               f"{device_phases['pooling']:.3f} s with the ranged decode "
+               f"of each sample (commit a1862b1, full decode, NVIDIA H100 "
+               f"80GB HBM3 at 700 W: 18.602 s)")
+    fig = os.path.join(runs["device"][0], "figures",
+                       "device.RC_inStrainCompare_dendrograms.pdf")
+    if have_matplotlib():
+        check(os.path.exists(fig) and os.path.getsize(fig) > 1000,
+              f"{fig} was not drawn")
+        log("e2e", f"compare --engine device: plots: the dendrograms, "
+                   f"{os.path.getsize(fig)} bytes, plots phase "
+                   f"{device_phases.get('plots', 0.0):.3f} s")
+    else:
+        check(device_plot_log, "compare --engine device: matplotlib is "
+                               "missing and no plotting failure was logged")
+        log("e2e", "compare --engine device: plots: not drawn (no "
+                   "matplotlib); 'compare plotting failed' logged")
 
     out, got = runs["device"]
     check(got["overlap_counts"] == n_groups and
@@ -2125,6 +2371,7 @@ def main():
 
     card = phase_environment(torch)
     phase_build()
+    phase_check_deps(torch)
     from instrain_tpu_torch.kernels import cuda_compact as CC
     short_keys = CC.MEDIAN_SHORT_KEYS
     errs, _ = phase_kernels(torch, card)
@@ -2137,8 +2384,9 @@ def main():
     errs["ld"], ld_at_d = phase_linkage(torch, card, rates)
     k7 = phase_compare_kernel(torch, card)
     phase_compare_crossover(torch, card)
-    launches, ld_args, captured = phase_end_to_end(torch)
+    launches, ld_args, captured, paths = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
+    phase_host_commands(torch, paths)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
 

@@ -22,7 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -70,6 +70,19 @@ def _run_stage(name: str, cmds: List[List[str]], log) -> None:
         raise BuildError(f"{name}: build failed ({failed[0]})")
 
 
+# (name, sources, headers, stages) of one library
+Spec = Tuple[str, List[str], List[str], Callable[[str], Stages]]
+
+
+def library_path(name: str, sources: List[str], headers: List[str],
+                 stages: Callable[[str], Stages]) -> str:
+    """Where the library of these sources and commands is built:
+    _build/lib<name>-<hash>.so."""
+    probe = [a for stage in stages("OUT") for c in stage for a in c]
+    return os.path.join(
+        BUILD_DIR, f"lib{name}-{_digest(sources + headers, probe)}.so")
+
+
 def build_library(name: str, sources: List[str], headers: List[str],
                   stages: Callable[[str], Stages]) -> str:
     """Path of lib<name>-<hash>.so, building it unless it exists.
@@ -77,9 +90,7 @@ def build_library(name: str, sources: List[str], headers: List[str],
     at once, the stages in order. Compiler output goes to a .log beside
     the library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    probe = [a for stage in stages("OUT") for c in stage for a in c]
-    target = os.path.join(
-        BUILD_DIR, f"lib{name}-{_digest(sources + headers, probe)}.so")
+    target = library_path(name, sources, headers, stages)
     if os.path.exists(target):
         return target
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
@@ -120,6 +131,10 @@ def native_io_library(use_libdeflate: Optional[bool] = None) -> str:
     header and library are installed, else csrc/zlib_shim/libdeflate.h,
     which implements the one libdeflate call bam.cc makes over zlib
     (use_libdeflate=False forces the shim)."""
+    return build_library(*_native_io_spec(use_libdeflate))
+
+
+def _native_io_spec(use_libdeflate: Optional[bool] = None) -> Spec:
     sources = [os.path.join(NATIVE_DIR, f) for f in ("bam.cc", "baq.cc")]
     headers = [os.path.join(NATIVE_DIR, "instrain_io.h")]
     if use_libdeflate is None:
@@ -136,7 +151,7 @@ def native_io_library(use_libdeflate: Optional[bool] = None) -> str:
         return [[[cxx, "-O3", "-fPIC", "-std=c++17", "-Wall"] + extra +
                  sources + ["-o", out, "-shared"] + libs + ["-lpthread"]]]
 
-    return build_library("instrain_io", sources, headers, command)
+    return "instrain_io", sources, headers, command
 
 
 def _nvcc() -> Optional[str]:
@@ -148,13 +163,17 @@ def _nvcc() -> Optional[str]:
 def cuda_kernels_library() -> str:
     """The hand-written Hopper kernels (csrc/*.cu) as one shared library
     with a plain C interface (loaded with ctypes)."""
+    nvcc = _nvcc()
+    if nvcc is None:
+        raise BuildError("nvcc not found (set CUDA_HOME)")
+    return build_library(*_cuda_kernels_spec(nvcc))
+
+
+def _cuda_kernels_spec(nvcc: str) -> Spec:
     sources = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
                      if f.endswith(".cu"))
     headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
                      if f.endswith(".cuh"))
-    nvcc = _nvcc()
-    if nvcc is None:
-        raise BuildError("nvcc not found (set CUDA_HOME)")
 
     def command(out: str) -> Stages:
         # one nvcc per source, all at once, then one link; no
@@ -167,4 +186,18 @@ def cuda_kernels_library() -> str:
                  for s, o in zip(sources, objs)],
                 [[nvcc, "-shared", "-o", out] + objs]]
 
-    return build_library("instrain_kernels", sources, headers, command)
+    return "instrain_kernels", sources, headers, command
+
+
+def built_libraries() -> Dict[str, Optional[str]]:
+    """For the decoder (instrain_io) and the CUDA kernels
+    (instrain_kernels): the path of the library built from this
+    checkout's sources with the compiler found here, or None where it is
+    not built yet (or, for the kernels, where no nvcc is found). Builds
+    nothing."""
+    nvcc = _nvcc()
+    out = {"instrain_io": library_path(*_native_io_spec()),
+           "instrain_kernels": (library_path(*_cuda_kernels_spec(nvcc))
+                                if nvcc else None)}
+    return {k: p if p and os.path.exists(p) else None
+            for k, p in out.items()}

@@ -1,24 +1,30 @@
 """
-Command-line interface of the port: the `profile`, `compare`,
-`genome_wide`, `profile_genes` and `parse_annotations` subcommands of
-instrain_tpu's CLI (reference: inStrain/argumentParser.py:55-398), with
-the same flags plus --device where kernels run.
-Flags whose feature is not ported yet are accepted by the parser and raise
-an error that names the ROADMAP.md item (profile/pipeline.py and
-compare/pipeline.py: check_supported); none is ignored.
+Command-line interface of the port: every subcommand of instrain_tpu's
+CLI (reference: inStrain/argumentParser.py:55-398) with the same flags
+and defaults, plus --device where kernels run. profile's --mesh_devices
+above 1 and --distributed are accepted by the parser and raise an error
+that names ROADMAP.md's item 7 (multiple GPUs and hosts); no flag is
+ignored.
 
-    instrain_tpu_torch profile BAM FASTA -o OUT.IS -s STB --device cuda \\
-        --skip_plot_generation
-    instrain_tpu_torch compare -i A.IS B.IS -o OUT.RC -s STB \\
-        --skip_plot_generation --device cuda
+    instrain_tpu_torch profile BAM FASTA -o OUT.IS -s STB --device cuda
+    instrain_tpu_torch compare -i A.IS B.IS -o OUT.RC -s STB --device cuda
     instrain_tpu_torch genome_wide -i OUT.IS -s STB
     instrain_tpu_torch profile_genes -i OUT.IS -g GENES.fna
     instrain_tpu_torch parse_annotations -i A.IS B.IS -a ANNO.csv -o OUT
+    instrain_tpu_torch plot -i OUT.IS [-pl 1 3] [-g GENOME] [-mb 0.5]
+    instrain_tpu_torch quick_profile BAM FASTA -s STB -o OUT
+    instrain_tpu_torch filter_reads BAM FASTA -o OUT
+    instrain_tpu_torch other --run_statistics OUT.IS | --old_IS PICKLE
+    instrain_tpu_torch check_deps
+
+plot, quick_profile, filter_reads, other and check_deps run on the host
+only (matplotlib, numpy, pandas): they take no --device.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from . import __version__
@@ -51,32 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     add_system(p)
     add_device(p)
-
-    g = p.add_argument_group("READ FILTERING OPTIONS")
-    g.add_argument("-l", "--min_read_ani", default=0.95, type=float,
-                   help="minimum read-pair identity (1 - NM/length, "
-                        "strictly greater) for a pair to count")
-    g.add_argument("--min_mapq", default=-1, type=int,
-                   help="minimum mapQ of the better mate (strictly "
-                        "greater)")
-    g.add_argument("--max_insert_relative", default=3, type=float,
-                   help="max insert size as a multiple of the median "
-                        "insert across all pairs")
-    g.add_argument("--min_insert", default=50, type=int,
-                   help="minimum insert size")
-    g.add_argument("--pairing_filter", default="paired_only",
-                   choices=["paired_only", "non_discordant", "all_reads"],
-                   help="which reads enter profiling")
-    g.add_argument("--priority_reads", default=None,
-                   help="fastq(.gz) or list of read names exempt from "
-                        "the pairing filter")
-    g.add_argument("--maximum_reads", default=None, type=int,
-                   help="deterministic template-level subsample to "
-                        "about this many records before profiling")
-    g.add_argument("--detailed_mapping_info", action="store_true",
-                   default=False,
-                   help="also store a per-read filter report")
-
+    add_readfilter(p)
     add_variant(p)
 
     p.add_argument("-g", "--gene_file", default=None,
@@ -111,8 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--skip_genome_wide", action="store_true",
                    help="do not aggregate to genome_info at the end")
     g.add_argument("--skip_plot_generation", action="store_true",
-                   help="do not draw the figures (required: plots are "
-                        "not ported yet)")
+                   help="do not draw the figures (a plotting failure, "
+                        "such as a missing matplotlib, is logged and the "
+                        "run goes on)")
     g.add_argument("--engine", default="auto",
                    choices=["auto", "dense", "hybrid", "batch", "pallas"],
                    help="kernel path: dense (site stats on the device, "
@@ -125,10 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "hybrid below, dense on --device cpu (pallas is "
                         "not ported: use dense)")
     g.add_argument("--mesh_devices", default=0, type=int,
-                   help="multi-GPU sharding (not ported yet: raises "
-                        "above 1)")
+                   help="multi-GPU sharding (not ported yet, ROADMAP.md "
+                        "item 7: raises above 1)")
     g.add_argument("--distributed", action="store_true",
-                   help="multi-host run (not ported yet: raises)")
+                   help="multi-host run (not ported yet, ROADMAP.md item "
+                        "7: raises)")
 
     p = sub.add_parser(
         "compare",
@@ -163,8 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--include_self_comparisons", action="store_true",
                    help="also compare each profile against itself")
     g.add_argument("--skip_plot_generation", action="store_true",
-                   help="do not draw the dendrogram figure (required with "
-                        "-s: plots are not ported yet)")
+                   help="do not draw the dendrogram figure (drawn with "
+                        "-s)")
     g.add_argument("--group_length", default=10000000, type=int,
                    help="genome bp per comparison batch (bounds RAM)")
     g.add_argument("--force_compress", action="store_true",
@@ -235,6 +218,69 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip genes below this breadth")
     p.add_argument("--store_rawdata", action="store_true",
                    help="also store the gene -> annotations dictionary")
+
+    p = sub.add_parser(
+        "plot",
+        help="draw the numbered figures from a profile",
+        description="Generate figures 1-10 (or a subset) as PDFs under "
+                    "<profile>/figures/ (host matplotlib).")
+    p.add_argument("-i", "--IS", required=True,
+                   help="an existing profile (or compare) directory")
+    p.add_argument("-pl", "--plots", nargs="*", default="a",
+                   help="plot numbers to draw, or 'a' for all")
+    p.add_argument("-mb", "--minimum_breadth", default=0.5, type=float,
+                   help="skip genomes below this breadth")
+    p.add_argument("-g", "--genomes", nargs="*", default=None,
+                   help="only plot these genomes")
+    add_system(p)
+
+    p = sub.add_parser(
+        "quick_profile",
+        help="fast coverage/breadth screen (no variant calling)",
+        description="Coverage pass of the native decoder producing "
+                    "per-genome coverage/breadth and scaffold lists (the "
+                    "coverM workflow, without coverM).")
+    p.add_argument("bam", help="sorted BAM mapping")
+    p.add_argument("fasta", help="FASTA the reads were mapped to")
+    add_stb(p)
+    p.add_argument("-o", "--output", default="QuickProfile",
+                   help="output directory")
+    p.add_argument("--breadth_cutoff", default=0.5, type=float,
+                   help="genome breadth to be listed in the output")
+    p.add_argument("--stringent_breadth_cutoff", default=0.0, type=float,
+                   help="per-scaffold breadth prefilter (0 = off)")
+    add_system(p)
+
+    p = sub.add_parser(
+        "filter_reads",
+        help="standalone read-filtering report",
+        description="Run only the read filter and write mapping_info.csv.")
+    p.add_argument("bam", help="sorted BAM mapping")
+    p.add_argument("fasta", help="FASTA the reads were mapped to")
+    p.add_argument("-o", "--output", default="filter_reads_output",
+                   help="output directory")
+    add_system(p)
+    add_readfilter(p)
+
+    p = sub.add_parser(
+        "other",
+        help="utilities: legacy-profile conversion, runtime reports",
+        description="Maintenance utilities over existing outputs.")
+    p.add_argument("--old_IS", default=None,
+                   help="convert a v0.x pickle profile to the current "
+                        "directory format (unpickles it: trusted files "
+                        "only)")
+    p.add_argument("--run_statistics", default=None,
+                   help="profile directory or log file: print the "
+                        "runtime/failure report")
+    add_system(p)
+
+    sub.add_parser(
+        "check_deps",
+        help="print dependency/device health",
+        description="Report versions, the CUDA devices, nvcc, and whether "
+                    "the CUDA kernels and the native decoder are built "
+                    "for this checkout's sources (builds nothing).")
     return parser
 
 
@@ -253,6 +299,33 @@ def add_device(p):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the kernels run: cuda (needs a GPU; no "
                         "fallback) or cpu (their plain PyTorch versions)")
+
+
+def add_readfilter(p):
+    g = p.add_argument_group("READ FILTERING OPTIONS")
+    g.add_argument("-l", "--min_read_ani", default=0.95, type=float,
+                   help="minimum read-pair identity (1 - NM/length, "
+                        "strictly greater) for a pair to count")
+    g.add_argument("--min_mapq", default=-1, type=int,
+                   help="minimum mapQ of the better mate (strictly "
+                        "greater)")
+    g.add_argument("--max_insert_relative", default=3, type=float,
+                   help="max insert size as a multiple of the median "
+                        "insert across all pairs")
+    g.add_argument("--min_insert", default=50, type=int,
+                   help="minimum insert size")
+    g.add_argument("--pairing_filter", default="paired_only",
+                   choices=["paired_only", "non_discordant", "all_reads"],
+                   help="which reads enter profiling")
+    g.add_argument("--priority_reads", default=None,
+                   help="fastq(.gz) or list of read names exempt from "
+                        "the pairing filter")
+    g.add_argument("--maximum_reads", default=None, type=int,
+                   help="deterministic template-level subsample to "
+                        "about this many records before profiling")
+    g.add_argument("--detailed_mapping_info", action="store_true",
+                   default=False,
+                   help="also store a per-read filter report")
 
 
 def add_stb(p):
@@ -387,7 +460,101 @@ def main(argv=None):
                           min_genome_breadth=args.min_genome_breadth,
                           min_gene_breadth=args.min_gene_breadth,
                           store_rawdata=args.store_rawdata)
+
+    elif args.operation == "plot":
+        from .plotting.controller import make_plots
+        isdir = ProfileDir(args.IS)
+        setup_logger(isdir.get_location("log") + "log.log")
+        make_plots(isdir, plots=args.plots, genomes=args.genomes,
+                   minimum_breadth=args.minimum_breadth)
+
+    elif args.operation == "quick_profile":
+        from .profile.quick_profile import quick_profile
+        quick_profile(args.bam, args.fasta, stb=args.stb,
+                      output=args.output,
+                      breadth_cutoff=args.breadth_cutoff,
+                      stringent_breadth_cutoff=args.stringent_breadth_cutoff,
+                      threads=args.processes)
+
+    elif args.operation == "filter_reads":
+        filter_reads_report(args)
+
+    elif args.operation == "other":
+        if args.run_statistics:
+            from .obs.logging import report_run_stats
+            logloc = args.run_statistics
+            if os.path.isdir(logloc):
+                logloc = os.path.join(logloc, "log", "log.log")
+            report_run_stats(logloc)
+        if args.old_IS:
+            from .store.legacy import convert_legacy_profile
+            convert_legacy_profile(args.old_IS)
+
+    elif args.operation == "check_deps":
+        print(gen_dependency_report())
     return 0
+
+
+def filter_reads_report(args) -> None:
+    """filter_reads: decode, filter and write <output>/mapping_info.csv
+    (instrain_tpu/cli.py:475-492)."""
+    from .config import ReadFilterConfig
+    from .io import fasta as fasta_io
+    from .io.bam import decode_bam
+    from .profile.filter_reads import filter_reads, write_mapping_info
+    os.makedirs(args.output, exist_ok=True)
+    seqs = fasta_io.read_fasta(args.fasta)
+    bam = decode_bam(args.bam, ref_seqs=seqs, threads=args.processes,
+                     baq=False)
+    fcfg = ReadFilterConfig(
+        min_read_ani=args.min_read_ani, min_mapq=args.min_mapq,
+        max_insert_relative=args.max_insert_relative,
+        min_insert=args.min_insert, pairing_filter=args.pairing_filter,
+        priority_reads=args.priority_reads)
+    ps = filter_reads(bam, fcfg, scaffolds=list(seqs.keys()))
+    write_mapping_info(ps.mapping_info,
+                       os.path.join(args.output, "mapping_info.csv"),
+                       ps.filter_values)
+
+
+def gen_dependency_report() -> str:
+    """The port's version, its host packages, the CUDA devices, nvcc, and
+    whether each native library is built for this checkout's sources
+    (reference: utils.gen_dependency_report, utils.py:35-94). Builds
+    nothing and imports no jax."""
+    from . import build
+    lines = [f"instrain_tpu_torch version {__version__}"]
+    for mod in ["torch", "numpy", "pandas", "scipy", "h5py", "matplotlib"]:
+        try:
+            m = __import__(mod)
+        except ImportError:
+            lines.append(f"{mod:12s} MISSING")
+            continue
+        extra = ""
+        if mod == "torch":
+            extra = f", CUDA build {m.version.cuda or 'none (CPU only)'}"
+        lines.append(f"{mod:12s} OK (version "
+                     f"{getattr(m, '__version__', '?')}{extra})")
+    try:
+        import torch
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        lines.append(f"CUDA available: {torch.cuda.is_available()} "
+                     f"({n} device(s))")
+        lines += [f"CUDA device {i}: {torch.cuda.get_device_name(i)}"
+                  for i in range(n)]
+    except ImportError:
+        lines.append("CUDA available: False (no torch)")
+    nvcc = build._nvcc()
+    lines.append(f"nvcc: {nvcc or 'MISSING (the CUDA kernels cannot be '
+                                   'built)'}")
+    built = build.built_libraries()
+    for name, what in (("instrain_kernels", "CUDA kernels"),
+                       ("instrain_io", "native decoder")):
+        path = built[name]
+        lines.append(f"{what} ({name}): " + (
+            f"built for the current sources ({path})" if path else
+            "not built for the current sources (builds at first use)"))
+    return "\n".join(lines)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ sends to the overlap_counts kernel (K7, kernels/cuda_compare.py) in one
 launch, the others by the host popcount; then each scaffold's pair
 tables. A scaffold whose host code fails is logged as a
 CompareException and skipped, as in the JAX package; a kernel or CUDA
-fault fails the run.
+fault fails the run. With -s, the dendrograms (plot 10) are drawn from the
+stored tables at the end unless --skip_plot_generation.
 """
 
 from __future__ import annotations
@@ -42,15 +43,15 @@ from ..kernels.cuda_compact import _sms
 from ..kernels.nullmodel import null_thresholds
 from ..kernels.sitestats import freq_min_count_lut
 from ..obs.logging import log_checkpoint, log_failure
-from ..profile.pipeline import is_device_error, resolve_device, unported
+from ..profile.pipeline import is_device_error, resolve_device
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 
 BASE_IDX = {"A": 0, "C": 1, "T": 2, "G": 3}
 
 # Phase accounting: set to a dict to accumulate wall seconds per phase
-# (load, overlap, pairs, pooling, store) of a compare run; None adds no
-# timers. chip_smoke.py reads it.
+# (load, overlap, pairs, pooling, store, plots) of a compare run; None
+# adds no timers. chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
 
 
@@ -86,13 +87,10 @@ class ScaffoldComparison:
 
 
 def check_supported(cfg: CompareConfig) -> None:
-    """Raise for an option of `compare` that this port does not run."""
+    """Raise for an --engine that compare does not know."""
     if cfg.engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown --engine {cfg.engine} (auto, host or "
                          f"device)")
-    if cfg.stb and not cfg.skip_popANI and not cfg.skip_plot_generation:
-        raise unported("the compare plot (pass --skip_plot_generation)",
-                       "item 6: the rest of the CLI")
 
 
 def compare(inputs: List[str], cfg: CompareConfig,
@@ -189,7 +187,9 @@ def compare(inputs: List[str], cfg: CompareConfig,
                       "Comparisons between the requested IS objects")
         out.store("scaffold2length", {sc.scaffold: sc.length for sc in SCs},
                   "dictionary", "Scaffold to length")
-        if stb is not None and not cfg.skip_popANI and len(comparison_db):
+        rolled_up = (stb is not None and not cfg.skip_popANI and
+                     len(comparison_db) > 0)
+        if rolled_up:
             _genome_rollup(out, comparison_db, stb, SCs, cfg)
 
     if cfg.bams:
@@ -222,6 +222,16 @@ def compare(inputs: List[str], cfg: CompareConfig,
             out.store("scaff2pair2mm2cov", scaff2pair2mm2overlap, "special",
                       "A dictionary of scaffold -> IS pair -> mm level -> "
                       "positions with coverage overlap")
+
+    if rolled_up and not cfg.skip_plot_generation:
+        # plot 10 from the stored tables (instrain_tpu/compare/
+        # pipeline.py:217-222); a failure is logged, never raised
+        with _phase("plots"):
+            try:
+                from ..plotting.controller import make_plots
+                make_plots(out, plots=["10"])
+            except Exception:
+                logging.exception("compare plotting failed")
     return out
 
 

@@ -21,12 +21,13 @@ from __future__ import annotations
 
 import ctypes as ct
 import logging
-import os
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from .bai import find_bai
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -275,10 +276,7 @@ def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
         h = lib.bd_open_sam(path.encode())
     else:
         if scaffolds is not None:
-            bais = [path + ".bai"]
-            if path.endswith(".bam"):
-                bais.append(path[:-4] + ".bai")
-            if any(os.path.exists(b) for b in bais):
+            if find_bai(path) is not None:
                 h = lib.bd_open_ranged(path.encode(), threads,
                                        "\n".join(scaffolds).encode())
                 ranged = bool(h)

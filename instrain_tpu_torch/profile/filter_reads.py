@@ -432,13 +432,16 @@ def _mapping_info_table(all_info: PairInfo, info: PairInfo,
 
 def write_mapping_info(df: pd.DataFrame, location: Optional[str],
                        values: Dict[str, object]):
-    """reference: filter_reads.py:699-720 (header comment + TSV)."""
+    """reference: filter_reads.py:699-720 (header comment + TSV); gzipped
+    where location ends in .gz (--force_compress), where the JAX package
+    writes plain text under that name."""
     header_vals = {k: values[k] for k in
                    ["min_read_ani", "max_insert_relative", "min_insert",
                     "min_mapq", "pairing_filter"] if k in values}
     if location is None:
         return header_vals
-    with open(location, "w") as f:
+    opener = gzip.open if location.endswith(".gz") else open
+    with opener(location, "wt") as f:
         f.write("# {0}\n".format(" ".join(
             f"{k}:{v}" for k, v in header_vals.items())))
         df.to_csv(f, index=False, sep="\t")

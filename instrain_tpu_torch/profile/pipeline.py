@@ -14,8 +14,10 @@ pairs through the device LD kernel, K6), store the profile directory and
 its TSVs, and (unless --skip_genome_wide) roll the scaffolds up to
 genomes (profile/genome.py). With -g, each scaffold's genes are profiled
 on the host from what its engine brought back (profile/genes.py), inside
-the tables step. Plots are not ported yet: asking for them raises
-(ROADMAP.md).
+the tables step. Unless --skip_plot_generation, the figures are drawn
+from the stored profile at the end (plotting/controller.py: host
+matplotlib, no device work); a plotting failure is logged and the run
+goes on.
 """
 
 from __future__ import annotations
@@ -47,10 +49,10 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      make_luts, run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
-# per phase (decode, filter, pileup, kernels, tables, store, genome) of a
-# profile run, and in "genes" the gene file's parse and the gene calls
-# (the calls lie inside "tables"); None adds no timers. chip_smoke.py
-# reads it.
+# per phase (decode, filter, pileup, kernels, tables, store, genome,
+# plots) of a profile run, and in "genes" the gene file's parse and the
+# gene calls (the calls lie inside "tables"); None adds no timers.
+# chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
 
 
@@ -83,14 +85,14 @@ def check_supported(cfg: ProfileConfig) -> None:
     """Raise for every option of `profile` that this port does not run,
     instead of ignoring it."""
     if cfg.engine not in ("auto", "dense", "hybrid", "batch"):
-        raise unported(f"--engine {cfg.engine}",
-                       "the dense engine is the Hopper counterpart of "
-                       "--engine pallas: use --engine dense")
-    if not cfg.skip_plot_generation:
-        raise unported("plots (pass --skip_plot_generation)",
-                       "item 6: the rest of the CLI")
+        # not a missing module: the Pallas TPU core has its Hopper
+        # counterpart in the dense engine's site_stats kernel
+        raise NotImplementedError(
+            f"--engine {cfg.engine} is the JAX package's Pallas TPU path; "
+            f"its counterpart here is --engine dense (ROADMAP.md, Queue "
+            f"2: K1)")
     if cfg.mesh_devices and cfg.mesh_devices > 1:
-        raise unported("--mesh_devices", "item 7: multiple GPUs")
+        raise unported("--mesh_devices", "item 7: multiple GPUs and hosts")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -282,6 +284,14 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
             genome_mod.genome_wide(isdir, stb=cfg.stb, mm_level=cfg.mm_level,
                                    skip_mm_profiling=cfg.skip_mm_profiling)
         log_checkpoint("main_profile", "genome_wide", "end")
+    if not cfg.skip_plot_generation:
+        # instrain_tpu/profile/pipeline.py:398-403
+        with _phase("plots"):
+            try:
+                from ..plotting.controller import make_plots
+                make_plots(isdir, plots="a")
+            except Exception as e:  # plots must never fail a profile run
+                logging.error(f"Plotting failed: {e}")
     if cfg.debug:
         # runtime/failure report (reference: controller.py:121-129 +
         # logUtils.report_run_stats)

@@ -104,15 +104,32 @@ def nonredundant(db: Optional[pd.DataFrame], subset,
               .sort_index().drop(columns=["mm"]))
 
 
+def nonredundant_snv_table(isdir: ProfileDir) -> pd.DataFrame:
+    return nonredundant(isdir.get("cumulative_snv_table"),
+                        ["scaffold", "position"], drop_cryptic=True)
+
+
+def nonredundant_scaffold_table(isdir: ProfileDir) -> pd.DataFrame:
+    return nonredundant(isdir.get("cumulative_scaffold_table"), ["scaffold"])
+
+
+def nonredundant_linkage_table(isdir: ProfileDir) -> pd.DataFrame:
+    return nonredundant(isdir.get("raw_linkage_table"),
+                        ["scaffold", "position_A", "position_B"])
+
+
+def nonredundant_rc_table(isdir: ProfileDir) -> pd.DataFrame:
+    return nonredundant(isdir.get("comparisonsTable"),
+                        ["scaffold", "name1", "name2"])
+
+
 # ---------- generate ----------
 
 _NONREDUNDANT = {
-    "SNVs": ("cumulative_snv_table", ["scaffold", "position"], True),
-    "scaffold_info": ("cumulative_scaffold_table", ["scaffold"], False),
-    "linkage": ("raw_linkage_table",
-                ["scaffold", "position_A", "position_B"], False),
-    "comparisonsTable": ("comparisonsTable", ["scaffold", "name1", "name2"],
-                         False),
+    "SNVs": nonredundant_snv_table,
+    "scaffold_info": nonredundant_scaffold_table,
+    "linkage": nonredundant_linkage_table,
+    "comparisonsTable": nonredundant_rc_table,
 }
 
 
@@ -123,14 +140,16 @@ def _write(isdir: ProfileDir, name: str, db: pd.DataFrame,
 
 
 def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
-             force_compress: bool = False):
-    """Write <output>/<base>_<name>.tsv in the reference's schema.
-    mm_level keeps every mm level of genome_info and
-    pairwise_SNP_locations instead of the highest."""
+             force_compress: bool = False, store: bool = True,
+             return_table: bool = False):
+    """Write <output>/<base>_<name>.tsv in the reference's schema (unless
+    not store) and return the table if return_table. mm_level keeps
+    every mm level of genome_info and pairwise_SNP_locations instead of
+    the highest."""
     if name == "mapping_info":
         from ..profile.filter_reads import write_mapping_info
         db = isdir.get("mapping_info")
-        if db is not None:
+        if store and db is not None:
             ft = ".tsv.gz" if force_compress else ".tsv"
             location = isdir.get_output_base() + name + ft
             if os.path.exists(location):
@@ -138,14 +157,13 @@ def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
             write_mapping_info(
                 reorder_columns(db, COLUMN_ORDERS["mapping_info"]),
                 location, isdir.get("mapping_info_values"))
-        return
+        return db if return_table else None
     if name == "pooled_SNV_data":
-        _generate_pooled_data(isdir, force_compress)
-        return
+        db = _generate_pooled_data(isdir, store, force_compress)
+        return db if return_table else None
 
     if name in _NONREDUNDANT:
-        attr, subset, drop_cryptic = _NONREDUNDANT[name]
-        db = nonredundant(isdir.get(attr), subset, drop_cryptic=drop_cryptic)
+        db = _NONREDUNDANT[name](isdir)
         if name == "SNVs":
             mdb = isdir.get("SNP_mutation_types")
             if mdb is not None and len(mdb) > 0 and len(db) > 0:
@@ -158,7 +176,7 @@ def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
     elif name == "gene_info":
         db = _gene_info(isdir)
         if db is None:
-            return
+            return None
     elif name == "genome_info":
         db = _genome_info(isdir.get("genome_level_info"), mm_level)
     elif name == "pairwise_SNP_locations":
@@ -182,8 +200,10 @@ def generate(isdir: ProfileDir, name: str, mm_level: bool = False,
 
     if db is None:
         logging.info(f"Could not create {name}")
-        return
-    _write(isdir, name, db, force_compress)
+        return None
+    if store:
+        _write(isdir, name, db, force_compress)
+    return db if return_table else None
 
 
 def _gene_info(isdir: ProfileDir) -> Optional[pd.DataFrame]:
@@ -231,12 +251,13 @@ def _genome_info(db: Optional[pd.DataFrame], mm_level: bool):
     return db
 
 
-def _generate_pooled_data(isdir: ProfileDir, force_compress: bool):
+def _generate_pooled_data(isdir: ProfileDir, store: bool,
+                          force_compress: bool) -> Optional[pd.DataFrame]:
     """pooled_SNV_data and its keys table (reference:
     SNVprofile.py:377-421)."""
     DSTdb = isdir.get("DSTdb")
     if DSTdb is None:
-        return
+        return None
     sa2k = {s: i for i, s in enumerate(set(DSTdb.index.get_level_values(0)))}
     sc2k = {s: i for i, s in enumerate(set(DSTdb["scaffold"]))}
     db = DSTdb.copy()
@@ -253,6 +274,8 @@ def _generate_pooled_data(isdir: ProfileDir, force_compress: bool):
         table["key"].append(i)
         table["sample"].append(k2sa.get(i, np.nan))
         table["scaffold"].append(k2sc.get(i, np.nan))
-    _write(isdir, "pooled_SNV_data_keys", pd.DataFrame(table),
-           force_compress)
-    _write(isdir, "pooled_SNV_data", db, force_compress)
+    if store:
+        _write(isdir, "pooled_SNV_data_keys", pd.DataFrame(table),
+               force_compress)
+        _write(isdir, "pooled_SNV_data", db, force_compress)
+    return db

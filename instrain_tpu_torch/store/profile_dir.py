@@ -28,6 +28,7 @@ import logging
 import os
 import pickle
 import threading
+from typing import List
 
 import numpy as np
 import pandas as pd
@@ -172,6 +173,9 @@ class ProfileDir:
         return (self.get_location("output") +
                 os.path.basename(self.get("location")) + "_")
 
+    def keys(self) -> List[str]:
+        return list(self._get_attributes().index)
+
     def load_output(self, name: str) -> pd.DataFrame:
         """Load an already-generated output TSV
         (reference: SNVprofile.load_output, 168-190)."""
@@ -186,6 +190,40 @@ class ProfileDir:
         if name == "mapping_info":
             return pd.read_csv(files[0], sep="\t", header=1)
         return pd.read_csv(files[0], sep="\t")
+
+    def get_read_length(self) -> float:
+        """reference: SNVprofile.get_read_length (458-460)."""
+        rdb = self.get("mapping_info").head(1)
+        return float(rdb["mean_pair_length"].iloc[0])
+
+    def get_clonality_table(self, nonredundant: bool = True) -> pd.DataFrame:
+        """clonT as one table of scaffold, position, clonality (and mm
+        unless nonredundant: then each position's highest mm level)
+        (reference: SNVprofile.get_clonality_table, 524-548)."""
+        clonT = self.get("clonT")
+        if clonT is None:
+            return pd.DataFrame()
+        dbs = []
+        for scaff, mm2series in clonT.items():
+            for mm, series in mm2series.items():
+                db = series.to_frame(name="clonality")
+                db["mm"] = mm
+                db = db.reset_index().rename(columns={"index": "position"})
+                db["scaffold"] = scaff
+                dbs.append(db)
+        if not dbs:
+            return pd.DataFrame()
+        cdb = pd.concat(dbs).dropna().reset_index(drop=True)
+        if nonredundant:
+            cdb = (cdb.sort_values("mm").dropna()
+                      .drop_duplicates(subset=["scaffold", "position"],
+                                       keep="last")
+                      .sort_index().drop(columns=["mm"]))
+        return cdb
+
+    def get_parsed_log(self) -> pd.DataFrame:
+        from ..obs.logging import load_log
+        return load_log(os.path.join(self.get_location("log"), "log.log"))
 
     # ---------- special ----------
 

@@ -17,8 +17,9 @@ synth_genes: gene files for a synth FASTA — a prodigal-style .fna and a
 minimal GenBank file — laid out so that profile -g meets every case of
 the gene code (see its docstring).
 
-The records are built with numpy in blocks of reads; no .bai index is
-written.
+The records are built with numpy in blocks of reads. Each BAM gets a
+minimal .bai beside it (io/bai.py:make_bai), as bench_batch.synth writes,
+so a decode of some scaffolds (compare's pooling) takes the ranged path.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .io.bai import make_bai
 from .io.bgzf import _CHAR2NIB, bam_header, write_bgzf
 
 READ = 150       # read length
@@ -43,7 +45,7 @@ BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 def synth(workdir: str, S: int = 128, L: int = 40_000, COV: int = 30,
           seed: int = 7) -> Tuple[str, str, int]:
-    """Write <workdir>/synth.fasta and synth.bam; returns
+    """Write <workdir>/synth.fasta, synth.bam and synth.bam.bai; returns
     (fasta, bam, number of read pairs)."""
     rng = np.random.default_rng(seed)
     fasta = os.path.join(workdir, "synth.fasta")
@@ -62,6 +64,7 @@ def synth(workdir: str, S: int = 128, L: int = 40_000, COV: int = 30,
         parts.append(_scaffold_records(rng, s, refs[s], L, n_pairs, qid))
         qid += n_pairs
     write_bgzf(bam, b"".join(parts))
+    make_bai(bam)
     return fasta, bam, S * n_pairs
 
 
@@ -128,6 +131,7 @@ def _write_sample(bam: str, seed, haps: List[np.ndarray],
         parts.append(_scaffold_records(rng, s, hap, L, n_pairs,
                                        s * n_pairs, truth=ref))
     write_bgzf(bam, b"".join(parts))
+    make_bai(bam)
 
 
 def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,

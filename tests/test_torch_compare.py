@@ -13,8 +13,9 @@ The port's `compare` against the JAX package's.
     JAX profiles + JAX compare, and the scaffold-selection options.
   - The rest: pickled covT (no h5py), the JAX ProfileDir reading the
     port's comparisonsTable, the auto engine rule, a kernel fault failing
-    the run, --device cuda without a GPU, unported plots, and the ranged
-    BAM decode.
+    the run, --device cuda without a GPU, the dendrograms drawn without
+    --skip_plot_generation, and the ranged BAM decode: pooling through
+    the samples' .bai and through a full decode gives the same tables.
 """
 
 import os
@@ -493,18 +494,54 @@ def test_kernel_fault_fails_compare(samples, jax_profiles, tmp_path,
              flags + ["--engine", "device"])
 
 
-def test_cuda_without_gpu_and_unported_plots_raise(jax_profiles, samples,
-                                                   tmp_path, monkeypatch):
+def test_plots_drawn_and_cuda_without_gpu_raises(jax_profiles, samples,
+                                                 tmp_path, monkeypatch):
+    """compare -s without --skip_plot_generation draws the dendrograms;
+    --device cuda without a GPU raises."""
     stb = samples[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_main(["compare", "-i"] + jax_profiles +
-                  ["-o", str(tmp_path / "plot.RC"), "-s", stb,
-                   "--device", "cpu"])
-    assert not os.path.exists(str(tmp_path / "plot.RC"))
+    out = str(tmp_path / "plot.RC")
+    assert port_main(["compare", "-i"] + jax_profiles +
+                     ["-o", out, "-s", stb, "--device", "cpu"]) == 0
+    fig = os.path.join(out, "figures", "plot.RC_inStrainCompare_"
+                                       "dendrograms.pdf")
+    assert os.path.getsize(fig) > 1000
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main(["compare", "-i"] + jax_profiles +
                   ["-o", str(tmp_path / "gpu.RC"), "--device", "cuda"])
+
+
+def test_pooling_ranged_equals_full_decode(samples, jax_profiles,
+                                           port_rcs, tmp_path, monkeypatch):
+    """synth_samples writes a .bai beside each BAM, so pooling decodes
+    only the compared scaffolds' ranges; BAMs without an index are decoded
+    whole. Both give the same pooled tables."""
+    from instrain_tpu_torch.compare import pooling
+    d, _, bams, _ = samples
+    ranged = []
+    decode = pooling.decode_bam
+
+    def spy(*a, **k):
+        bam = decode(*a, **k)
+        ranged.append(bam.ranged)
+        return bam
+
+    monkeypatch.setattr(pooling, "decode_bam", spy)
+    copies = []
+    for bam in bams:
+        copies.append(str(tmp_path / os.path.basename(bam)))
+        shutil.copy(bam, copies[-1])
+    flags = _flags(samples, bams=False) + ["--engine", "host", "--device",
+                                           "cpu"]
+    full = _run(port_main, jax_profiles, str(tmp_path / "full.RC"),
+                flags + ["--bams"] + copies)
+    assert ranged == [False] * 3
+    again = _run(port_main, jax_profiles, str(tmp_path / "ranged.RC"),
+                 flags + ["--bams"] + bams)
+    assert ranged[3:] == [True] * 3
+    for table in TABLES:
+        assert _tsv(full, table) == _tsv(port_rcs["host"], table), table
+        assert _tsv(again, table) == _tsv(full, table), table
 
 
 def test_ranged_decode_matches_jax(samples, tmp_path):

@@ -1,6 +1,6 @@
 """
 The port's I/O against the JAX package: the synthetic BAM generator is
-byte-identical to bench_batch.synth, and the port's own build of the
+byte-identical to bench_batch.synth (its .bai too), and the port's own build of the
 native decoder (with libdeflate, and with the zlib shim the GPU host
 needs) decodes it to the same arrays as instrain_tpu's decoder.
 """
@@ -39,6 +39,9 @@ def test_synth_matches_bench_batch(tmp_path, S, L, seed):
     assert n_p == n_j
     assert open(fa_p, "rb").read() == open(fa_j, "rb").read()
     assert open(bam_p, "rb").read() == open(bam_j, "rb").read()
+    # both write the minimal .bai beside the BAM: the same bytes
+    assert open(bam_p + ".bai", "rb").read() == \
+        open(bam_j + ".bai", "rb").read()
 
 
 def _assert_same_decode(a, b):

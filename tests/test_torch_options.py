@@ -17,10 +17,12 @@ per option set.
 
 import os
 
+import numpy as np
 import pytest
 
 from instrain_tpu.cli import main as jax_main
 from instrain_tpu_torch.cli import main as port_main
+from instrain_tpu_torch.store.profile_dir import ProfileDir
 from instrain_tpu_torch.synth import synth, synth_samples
 
 TABLES = ["SNVs", "scaffold_info", "linkage", "mapping_info"]
@@ -52,7 +54,24 @@ PROFILE_OPTIONS = {
     "priority_reads": ["--priority_reads", "{d}/priority.txt"],
     "priority_reads_maximum": ["--priority_reads", "{d}/priority.fastq",
                                "--maximum_reads", "3000"],
+    "null_model_file": ["--null_model", "{d}/NullModel.txt"],
 }
+
+
+def write_null_model(path, error_rate=0.005, max_coverage=3000):
+    """An inStrain-format NullModel.txt from the analytic model at
+    error_rate (5x the default's): row N holds 3 * P(Binom(N, rate / 3)
+    >= e) for e = 1..18, up to max_coverage (deeper positions take the
+    file's largest threshold)."""
+    from scipy.stats import binom
+    covs = np.arange(1, max_coverage + 1)
+    e = np.arange(1, 19)
+    prob = 3 * binom.sf(e[None, :] - 1, covs[:, None], error_rate / 3)
+    with open(path, "w") as f:
+        f.write("coverage\t" + "\t".join(map(str, e)) + "\n")
+        for n, row in zip(covs, prob):
+            f.write(f"{n}\t" + "\t".join(repr(float(x)) for x in row) +
+                    "\n")
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +87,7 @@ def synth_input(tmp_path_factory):
         f.write("\n".join(names) + "\n")
     with open(d / "priority.fastq", "w") as f:
         f.write("".join(f"@{n}\nACGT\n+\nIIII\n" for n in names[::2]))
+    write_null_model(str(d / "NullModel.txt"))
     return str(d), fasta, bam
 
 
@@ -91,6 +111,66 @@ def test_profile_option_matches_jax(synth_input, case):
         assert _tsv(port, table) == _tsv(jax, table), table
     # (SNVs may be empty: --min_scaffold_reads 2000 keeps no scaffold)
     assert len(_tsv(jax, "mapping_info").splitlines()) > 2
+
+
+def test_null_model_file_is_read(synth_input):
+    """The file written from the analytic model at error rate 0.005 gives
+    that model's thresholds up to its last coverage, and they differ from
+    the default model's."""
+    from instrain_tpu_torch.kernels.nullmodel import (
+        analytic_null_thresholds, null_thresholds)
+    d, _, _ = synth_input
+    got = null_thresholds(os.path.join(d, "NullModel.txt"))
+    want = analytic_null_thresholds(error_rate=0.005)
+    np.testing.assert_array_equal(got[:3001], want[:3001])
+    assert (got[3001:] == want[:3001].max()).all()
+    assert (got[1:3001] > analytic_null_thresholds()[1:3001]).any()
+
+
+def _gz_texts(out, plain_ok=False):
+    """{table: decompressed bytes} of a run's .tsv.gz outputs; plain_ok
+    takes a file that is not gzipped as it is (the JAX package writes
+    mapping_info as plain text under its .tsv.gz name)."""
+    import gzip
+    od = os.path.join(out, "output")
+    got = {}
+    for f in sorted(os.listdir(od)):
+        assert f.endswith(".tsv.gz"), f
+        table = f[len(os.path.basename(out)) + 1:-len(".tsv.gz")]
+        with open(os.path.join(od, f), "rb") as fh:
+            raw = fh.read()
+        if raw[:2] == b"\x1f\x8b" or not plain_ok:
+            raw = gzip.decompress(raw)
+        got[table] = raw
+    return got
+
+
+def test_profile_debug_and_force_compress_match_jax(synth_input):
+    """-d writes runtime_summary.txt in both packages, with the same
+    section headers; --force_compress gzips every table, and each .gz
+    decompresses to the JAX package's bytes (mapping_info too, which the
+    JAX package leaves as plain text under its .gz name)."""
+    d, fasta, bam = synth_input
+    outs = {}
+    for tag, runner, extra in ((("port", port_main, ["--device", "cpu"]),
+                                ("jax", jax_main, ["--engine", "dense"]))):
+        outs[tag] = os.path.join(d, f"{tag}_debug_gz.IS")
+        assert runner(["profile", bam, fasta, "-o", outs[tag], "-d",
+                       "--force_compress"] + FLAGS + extra) == 0
+    got = _gz_texts(outs["port"])
+    assert sorted(got) == sorted(TABLES)
+    assert got == _gz_texts(outs["jax"], plain_ok=True)
+    # the port's mapping_info reads back through its .gz name
+    mi = ProfileDir(outs["port"]).load_output("mapping_info")
+    assert mi["scaffold"].iloc[0] == "all_scaffolds"
+    headers = {}
+    for tag, out in outs.items():
+        with open(os.path.join(out, "log", "runtime_summary.txt")) as f:
+            headers[tag] = [l for l in f.read().splitlines()
+                            if l.startswith(".:: ")]
+    assert headers["port"] == headers["jax"]
+    assert ".:: Failures ::." in headers["port"]
+    assert ".:: Checkpoints: main_profile ::." in headers["port"]
 
 
 def test_min_insert_leaving_no_pairs_fails_alike(synth_input):
@@ -117,6 +197,8 @@ COMPARE_OPTIONS = {
     "group_length_5000": ["--group_length", "5000"],        # 4 groups
     "group_length_10000": ["--group_length", "10000"],      # 2 groups
     "ani_cov": ["-ani", "0.999", "-cov", "0.5"],
+    "cluster_single": ["--clusterAlg", "single", "-ani", "0.999"],
+    "cluster_complete": ["--clusterAlg", "complete", "-ani", "0.999"],
 }
 
 
@@ -149,3 +231,22 @@ def test_compare_option_matches_jax(jax_sample_profiles, case, engine):
         want = _tsv(jax, table)
         assert _tsv(port, table) == want, table
         assert len(want.splitlines()) > 1, table
+
+
+def test_compare_force_compress_matches_jax(jax_sample_profiles):
+    """compare --force_compress gzips comparisonsTable; it decompresses to
+    the JAX package's bytes."""
+    import gzip
+    d, profiles, stb = jax_sample_profiles
+    texts = {}
+    for tag, runner, extra in (("port", port_main, ["--device", "cpu"]),
+                               ("jax", jax_main, [])):
+        out = os.path.join(d, f"{tag}_gz.RC")
+        assert runner(["compare", "-i"] + profiles + ["-o", out, "-s", stb,
+                       "--skip_plot_generation", "--force_compress"] +
+                      extra) == 0
+        with gzip.open(os.path.join(out, "output", f"{tag}_gz.RC_"
+                                    f"comparisonsTable.tsv.gz")) as f:
+            texts[tag] = f.read()
+    assert texts["port"] == texts["jax"]
+    assert len(texts["jax"].splitlines()) > 1

@@ -195,7 +195,7 @@ def test_special_stored_as_pickle_without_h5py(tmp_path, monkeypatch):
     ["--engine", "batch", "--mesh_devices", "2"] + FLAGS,
     ["--engine", "pallas"] + FLAGS,
     ["-g", "genes.fna", "--mesh_devices", "2"] + FLAGS,
-    ["-g", "genes.fna", "--skip_genome_wide"], ["--skip_genome_wide"],
+    ["-g", "genes.fna", "--distributed"], ["--mesh_devices", "2"],
     ["--mesh_devices", "2"] + FLAGS, ["--distributed"] + FLAGS])
 def test_unported_options_raise(tmp_path, synth_data, extra):
     fasta, bam, _ = synth_data
