@@ -1634,6 +1634,9 @@ def phase_end_to_end(torch):
         PL.resolve_linkage_engine = resolve
         PL._device_ld_args = device_ld_args
     torch.cuda.synchronize()
+    # the auto runs' TSVs as they were written: profile_genes below adds
+    # the gene columns to the metagenome's SNVs
+    auto_tsvs = {name: tsvs(outs[name]) for name in outs}
     captured = capture.inputs
     check(sorted(captured) == sorted(c[0] for c in cases),
           f"compact_from_full's inputs captured for {sorted(captured)}")
@@ -1788,7 +1791,12 @@ def phase_end_to_end(torch):
     paths = {"metagenome": data["metagenome"][:2],
              "metagenome_profile": outs["metagenome"],
              "small": small_input, "small_profile": os.path.join(
-                 small, "hybrid_cuda.IS")}
+                 small, "hybrid_cuda.IS"),
+             "isolate": data["isolate"][:2],
+             "metagenome_tsvs": auto_tsvs["metagenome"],
+             "isolate_tsvs": auto_tsvs["isolate"],
+             "metagenome_launches": case_launches["metagenome"],
+             "isolate_launches": case_launches["isolate"]}
     return launches, ld_args[-1], captured, paths
 
 
@@ -2341,6 +2349,246 @@ def phase_compare_e2e(torch):
     return got["overlap_counts"]
 
 
+# ---------------------------------------------------------------- mesh
+
+
+def kernel_launches():
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    return {**C.launch_counts(), **CC.launch_counts(), **CL.launch_counts()}
+
+
+def reset_launches():
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import cuda_linkage as CL
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    C.reset_launch_counts()
+    CC.reset_launch_counts()
+    CL.reset_launch_counts()
+
+
+def phase_mesh(torch, paths):
+    """--mesh_devices 2 through the CLI (on one card: the error that it
+    needs two); profile() over a mesh of two shards of cuda:0 for the
+    isolate (hybrid, each shard half its positions) and the metagenome
+    (batch, the chunks in turn), TSVs byte-identical to the one-shard auto
+    runs, with each kernel's launches; clonR drawn at a base position
+    against its plain version. Returns (clonR's max abs err, the base)."""
+    import numpy as np
+    from instrain_tpu_torch.cli import (build_parser, main,
+                                        profile_config_from_args)
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.kernels.nullmodel import \
+        analytic_null_thresholds
+    from instrain_tpu_torch.kernels.sitestats import freq_min_count_lut
+    from instrain_tpu_torch.parallel.mesh import make_mesh
+    from instrain_tpu_torch.profile import pipeline
+    from instrain_tpu_torch.profile.compact import _fold_keys
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
+    from instrain_tpu_torch.synth import site_stats_inputs
+
+    card = nvidia_smi_line()
+    work = os.path.join(WORK, "mesh")
+    os.makedirs(work)
+    n_cards = torch.cuda.device_count()
+    fasta, bam = paths["small"]
+    argv = ["profile", bam, fasta, "-o", os.path.join(work, "cli2.IS"),
+            "--mesh_devices", "2"] + FLAGS
+    if n_cards < 2:
+        try:
+            main(argv)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised == f"need 2 devices, have {n_cards}",
+              f"--mesh_devices 2 on {n_cards} card: {raised!r}")
+        log("mesh", f"--mesh_devices 2 through the CLI on {n_cards} card "
+                    f"raised: {raised}")
+    else:
+        one = os.path.join(work, "cli1.IS")
+        check(main(argv) == 0 and main(
+            ["profile", bam, fasta, "-o", one] + FLAGS) == 0,
+              "--mesh_devices 2: a run failed")
+        check(tsvs(os.path.join(work, "cli2.IS")) == tsvs(one),
+              "--mesh_devices 2: TSVs differ from the one-card run")
+        log("mesh", f"--mesh_devices 2 through the CLI on {n_cards} cards: "
+                    f"TSVs byte-identical to the one-card run")
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    for name, plan in (("isolate", "hybrid: each shard half the "
+                                   "positions"),
+                       ("metagenome", "batch: the chunks in turn")):
+        fasta, bam = paths[name]
+        out = os.path.join(work, f"{name}_mesh2.IS")
+        cfg = profile_config_from_args(build_parser().parse_args(
+            ["profile", bam, fasta, "-o", out] + FLAGS))
+        reset_launches()
+        pipeline.PHASES = {}
+        t0 = time.perf_counter()
+        pipeline.profile(bam, fasta, cfg, mesh=mesh)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        phases, pipeline.PHASES = dict(pipeline.PHASES), None
+        got = kernel_launches()
+        check(tsvs(out) == paths[f"{name}_tsvs"],
+              f"{name} over {mesh}: TSVs differ from the one-shard run")
+        with open(os.path.join(out, "log", "log.log")) as f:
+            check("Sharding the profile kernels over 2 devices" in f.read(),
+                  f"{name}: the run was not sharded")
+        want = dict(paths[f"{name}_launches"])
+        if name == "isolate":
+            # one scaffold: two shards of each kernel, one median
+            want.update({k: 2 for k in ("site_stats", "clonR",
+                                        "select_rows", "mm_aggregates")})
+        check(got == want, f"{name} over two shards: launches {got}, "
+                           f"expected {want}")
+        log("mesh", f"{name} over {mesh} ({plan}): wall {wall:.3f} s, TSVs "
+                    f"byte-identical to the one-shard auto run; launches "
+                    f"{got} (one shard: {paths[name + '_launches']})")
+        log("mesh", f"{name} over two shards, phases (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()))
+        if name == "isolate":
+            cov = ProfileDir(out).get("covT")
+            M = max(len(v) for v in cov.values())
+            L = next(c[2] for c in MAIN_CASES if c[0] == "isolate")
+            half = L - (L + 1) // 2
+            log("mesh", f"isolate: masked_median runs once over the whole "
+                        f"scaffold on the first device from the shards' "
+                        f"total (int64) and filled clon and clonR (f32): "
+                        f"{16 * M * L} bytes read (M = {M}, L = {L}), of "
+                        f"which the second shard's {16 * M * half} bytes "
+                        f"were copied to the first device (here a copy "
+                        f"within {card})")
+
+    # clonR drawn at a base position: the shard's draws against the plain
+    # version at the same base, and unlike the same shard drawn at base 0
+    dev = torch.device("cuda")
+    M, n, pos0 = 8, 40_000, 2_460_000
+    counts, ref = site_stats_inputs(M, n, seed=17)
+    core = C.site_stats_core_plain(
+        torch.from_numpy(counts).to(dev), torch.from_numpy(ref).to(dev),
+        torch.as_tensor(analytic_null_thresholds(max_coverage=10000),
+                        device=dev),
+        torch.as_tensor(freq_min_count_lut(0.05, max_coverage=10000),
+                        device=dev))
+    key = _fold_keys(42, [0])[0]
+    args = (core["cum"], core["total"], core["clonR_set"])
+    seg = C.single_segment(n, key, dev, pos0=pos0)
+    got = C.clonR(*args, seg, 50, 8)
+    want = C.clonR_plain(*args, seg, 50, 8)
+    torch.cuda.synchronize()
+    err = compare({"clonR": want}, {"clonR": got},
+                  f"clonR at base {pos0}")
+    base0 = C.clonR(*args, C.single_segment(n, key, dev), 50, 8)
+    check(not torch.equal(torch.nan_to_num(base0), torch.nan_to_num(got)),
+          "clonR at a base position drew as at base 0")
+    log("mesh", f"clonR M={M} L={n} at base position {pos0} == plain "
+                f"bitwise ({int(core['clonR_set'].sum())} drawn cells), "
+                f"unlike the same cells at base 0")
+    return err, pos0
+
+
+# ------------------------------------------------------------- distributed
+
+# one process of the distributed phase: the CLI as python -m runs it,
+# then its phase walls and launch counts
+DIST_RANK = """
+import json, runpy, sys, time
+from instrain_tpu_torch.kernels import cuda_compact, cuda_linkage
+from instrain_tpu_torch.kernels import cuda_sitestats
+from instrain_tpu_torch.profile import pipeline
+pipeline.PHASES = {}
+sys.argv = ["instrain_tpu_torch.cli"] + sys.argv[1:]
+t0 = time.perf_counter()
+try:
+    runpy.run_module("instrain_tpu_torch.cli", run_name="__main__")
+    rc = 0
+except SystemExit as e:
+    rc = e.code or 0
+print("WALL", time.perf_counter() - t0, flush=True)
+print("PHASES", json.dumps(pipeline.PHASES), flush=True)
+print("LAUNCHES", json.dumps({**cuda_sitestats.launch_counts(),
+                              **cuda_compact.launch_counts(),
+                              **cuda_linkage.launch_counts()}), flush=True)
+sys.exit(rc)
+"""
+
+
+def phase_distributed(torch, paths):
+    """Two processes (RANK 0 and 1 of WORLD_SIZE 2, no LOCAL_RANK: both on
+    cuda:0, gloo on 127.0.0.1) run `instrain_tpu_torch.cli profile
+    --distributed` over the metagenome and its .bai, each into its own
+    directory: process 0's TSVs equal the one-process run's byte for
+    byte, process 1 writes none; each process's ranged decode, owned
+    scaffolds, phase walls and launches are logged."""
+    import socket
+    fasta, bam = paths["metagenome"]
+    work = os.path.join(WORK, "dist")
+    os.makedirs(work)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs, procs, logs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in (0, 1):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       INSTRAIN_DIST_TIMEOUT="300")
+            env.pop("LOCAL_RANK", None)
+            env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+            outs.append(os.path.join(work, f"rank{rank}.IS"))
+            logs.append(open(os.path.join(work, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_RANK, "profile", bam, fasta,
+                 "-o", outs[-1], "--distributed"] + FLAGS, env=env,
+                cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"distributed rank {rank} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+    check(tsvs(outs[0]) == paths["metagenome_tsvs"],
+          "distributed: rank 0's TSVs differ from the one-process run")
+    check(not os.path.exists(outs[1]), "distributed: rank 1 wrote files")
+    owned = []
+    for rank, text in enumerate(texts):
+        lines = text.splitlines()
+
+        def line(prefix):
+            hit = [l for l in lines if l.startswith(prefix)]
+            check(hit, f"rank {rank}: no line {prefix!r}")
+            return hit[-1][len(prefix):].strip()
+
+        decoded = line(f"sharded decode: host {rank} ")
+        owns = line(f"multi-host: process {rank} of 2 owns ")
+        owned.append(int(owns.split()[0]))
+        phases = json.loads(line("PHASES"))
+        log("distributed", f"rank {rank}: {decoded}; owns {owns}; wall "
+                           f"{float(line('WALL')):.3f} s; phases (s): " +
+                           ", ".join(f"{k} {v:.3f}" for k, v in
+                                     phases.items()))
+        log("distributed", f"rank {rank} launches: {line('LAUNCHES')}")
+    check(sum(owned) == 128 and min(owned) > 0,
+          f"distributed: scaffolds owned {owned}")
+    log("distributed", f"two processes on cuda:0 over the metagenome: "
+                       f"{wall:.3f} s from start to both exits; rank 0's "
+                       f"TSVs byte-identical to the one-process run, rank "
+                       f"1 wrote no directory")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2387,6 +2635,9 @@ def main():
     launches, ld_args, captured, paths = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
     phase_host_commands(torch, paths)
+    mesh_err, clonr_base = phase_mesh(torch, paths)
+    errs["clonR"] = max(errs["clonR"], mesh_err)
+    phase_distributed(torch, paths)
     check("jax" not in sys.modules and "instrain_tpu" not in sys.modules,
           "jax or instrain_tpu was imported")
 
@@ -2431,7 +2682,8 @@ def main():
          "replaces": "instrain_tpu/kernels/sitestats.py:136",
          "launches": launches["clonR"],
          "max_abs_err": errs["clonR"],
-         "ms": times["clonR"][0], "plain_ms": times["clonR"][1]},
+         "ms": times["clonR"][0], "plain_ms": times["clonR"][1],
+         "checked_at_base": clonr_base},
     ] + [
         {"name": name, "route": "cuda",
          "source": "instrain_tpu_torch/csrc/compact.cu",

@@ -1,10 +1,13 @@
 """
 Command-line interface of the port: every subcommand of instrain_tpu's
 CLI (reference: inStrain/argumentParser.py:55-398) with the same flags
-and defaults, plus --device where kernels run. profile's --mesh_devices
-above 1 and --distributed are accepted by the parser and raise an error
-that names ROADMAP.md's item 7 (multiple GPUs and hosts); no flag is
-ignored.
+and defaults, plus --device where kernels run; no flag is ignored.
+profile --mesh_devices N shards the kernels over N cards (or N shards of
+the CPU), and profile --distributed runs one process of several, as
+torchrun starts them:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m instrain_tpu_torch.cli profile BAM FASTA -o OUT.IS --distributed
 
     instrain_tpu_torch profile BAM FASTA -o OUT.IS -s STB --device cuda
     instrain_tpu_torch compare -i A.IS B.IS -o OUT.RC -s STB --device cuda
@@ -107,11 +110,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "hybrid below, dense on --device cpu (pallas is "
                         "not ported: use dense)")
     g.add_argument("--mesh_devices", default=0, type=int,
-                   help="multi-GPU sharding (not ported yet, ROADMAP.md "
-                        "item 7: raises above 1)")
+                   help="shard the profile kernels over N cards of a 1-D "
+                        "mesh (hybrid: each scaffold's positions; batch: "
+                        "its chunks), the cards LOCAL_RANK*N ... "
+                        "LOCAL_RANK*N+N-1 under torchrun, else N from the "
+                        "current one; raises if they do not exist. On "
+                        "--device cpu, N shards of the CPU. 0 = one device")
     g.add_argument("--distributed", action="store_true",
-                   help="multi-host run (not ported yet, ROADMAP.md item "
-                        "7: raises)")
+                   help="one process of a multi-process run (torchrun's "
+                        "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT; gloo): "
+                        "each process decodes and profiles only the "
+                        "scaffolds it owns (ranged through the .bai with "
+                        "paired_only), the results meet in one gather, and "
+                        "process 0 writes the profile. The card is "
+                        "cuda:LOCAL_RANK where it is set")
 
     p = sub.add_parser(
         "compare",
@@ -391,6 +403,24 @@ def profile_config_from_args(args) -> ProfileConfig:
     return cfg
 
 
+def select_local_cards(device: str, mesh_devices: int) -> None:
+    """Under torchrun (LOCAL_RANK set) on --device cuda, make this
+    process's first card current: cuda:LOCAL_RANK, or with --mesh_devices
+    N the first of cards LOCAL_RANK*N ... LOCAL_RANK*N+N-1 (the mesh takes
+    N cards from the current one on). Raises if those cards do not exist;
+    never shares or wraps."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is None or device != "cuda":
+        return
+    import torch
+    n = max(mesh_devices, 1)
+    first = int(local) * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if first + n > have:
+        raise ValueError(f"need {first + n} devices, have {have}")
+    torch.cuda.set_device(first)
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -402,19 +432,26 @@ def main(argv=None):
     from .store.profile_dir import ProfileDir
 
     if args.operation == "profile":
-        from .profile.pipeline import check_supported, profile, unported
-        if args.distributed:
-            raise unported("--distributed",
-                           "item 7: multiple GPUs and hosts")
+        from .parallel import distributed
+        from .profile.pipeline import check_supported, profile, writes_profile
         cfg = profile_config_from_args(args)
         check_supported(cfg)
+        select_local_cards(args.device, args.mesh_devices)
         output = args.output
         if output == "inStrain":
             output = args.fasta.split(".")[0].split("/")[-1]
         cfg.output = output
-        isdir = ProfileDir(output)
-        setup_logger(isdir.get_location("log") + "log.log")
-        profile(args.bam, args.fasta, cfg)
+        if args.distributed:
+            distributed.init_distributed()
+        try:
+            if writes_profile(cfg):
+                isdir = ProfileDir(output)
+                setup_logger(isdir.get_location("log") + "log.log")
+            else:
+                setup_logger(None)      # a peer of process 0: console
+            profile(args.bam, args.fasta, cfg)
+        finally:
+            distributed.shutdown_distributed()
 
     elif args.operation == "compare":
         from .compare.pipeline import check_supported, compare

@@ -68,7 +68,14 @@ class ProfileConfig:
     # execution (no reference equivalent)
     engine: str = "auto"               # auto|dense|hybrid|batch
     seed: int = 42                     # key for the rarefied draws
-    mesh_devices: int = 0              # multi-GPU: not ported (ROADMAP.md)
+    # shard the profile kernels over N devices (0 or 1: one device):
+    # hybrid splits each scaffold's positions, batch its chunks
+    # (parallel/mesh.py)
+    mesh_devices: int = 0
+    # several processes (--distributed): "primary" — only process 0
+    # writes the profile directory; "all" — every process writes a whole,
+    # identical one
+    distributed_store: str = "primary"
     # where the kernels run: "cuda" (a GPU is required; no fallback) or
     # "cpu" (the kernels' plain PyTorch versions)
     device: str = "cuda"

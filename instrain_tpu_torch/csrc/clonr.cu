@@ -10,9 +10,12 @@
 // nothing. A set cell rebuilds its f32 cdf from cum and total (p0,
 // p0 + p1, (p0 + p1) + p2 — the JAX order), then takes `draws`
 // categorical draws: draw d uses the first Threefry-2x32 word at counter
-// (d * m_stride + m, p) under the segment's key, with p counted from the
-// segment's start (as the JAX batch engine counts it per scaffold),
-// turned into a uniform as
+// (d * m_stride + m, pos0 + p) under the segment's key, with p counted from
+// the segment's start (as the JAX batch engine counts it per scaffold) and
+// pos0 the base passed beside the table (0 for a whole scaffold; a shard of
+// a scaffold's positions draws at the scaffold's positions, as the JAX
+// package's position-sharded run does with its global iota), turned into a
+// uniform as
 // bitcast((b0 >> 9) | 0x3F800000) - 1; its category is the number of
 // k < 3 with u > cdf[k]. The result is sum((count_b / draws)^2) in the
 // order XLA's CPU backend evaluates the JAX function: r_b = count_b times
@@ -75,7 +78,7 @@ __global__ void clonr_kernel(const int32_t* __restrict__ cum,
     for (int d = 0; d < draws; ++d) {
         const uint32_t b0 = threefry2x32_w0(
             k0, k1, (uint32_t)d * m_stride + (uint32_t)m,
-            (uint32_t)t.p_local);
+            (uint32_t)(g.pos0 + t.p_local));
         const float u = __fsub_rn(__uint_as_float((b0 >> 9) | 0x3F800000u),
                                   1.0f);
         const int cat = (u > cdf0) + (u > cdf1) + (u > cdf2);
@@ -98,12 +101,13 @@ __global__ void clonr_kernel(const int32_t* __restrict__ cum,
 extern "C" int instrain_clonr(const void* cum, const void* total,
                               const void* clonR_set, int M, int64_t L,
                               const void* seg_table, int S, int64_t n_tiles,
-                              uint64_t key0, uint32_t m_stride, int draws,
-                              void* clonR, void* stream) {
+                              uint64_t key0, int64_t pos0,
+                              uint32_t m_stride, int draws, void* clonR,
+                              void* stream) {
     clonr_kernel<<<dim3((unsigned)n_tiles, (unsigned)M), instrain::kTile, 0,
                    (cudaStream_t)stream>>>(
         (const int32_t*)cum, (const int64_t*)total, (const bool*)clonR_set,
-        M, L, instrain::segments(seg_table, S, L, key0), m_stride, draws,
+        M, L, instrain::segments(seg_table, S, L, key0, pos0), m_stride, draws,
         (float*)clonR);
     return (int)cudaGetLastError();
 }

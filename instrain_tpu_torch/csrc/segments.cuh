@@ -11,6 +11,10 @@
 // A chunk of one segment needs no table (a null pointer): the segment is
 // the whole axis, under the key passed beside it, so a one-scaffold launch
 // copies nothing to the device first.
+// pos0, passed beside the table, is the base of every segment's position
+// count for the rarefied draws: 0 for a whole scaffold, the shard's first
+// position for a shard of one scaffold's positions (parallel/mesh.py), so
+// that a shard draws at the scaffold's own positions.
 // Position-tiled kernels launch one block per tile of kTile positions, or
 // of kBigTile (mm_aggregates); a tile never spans two segments, so a
 // block reduces into one segment.
@@ -29,11 +33,12 @@ struct Segments {
     int S;
     int64_t L;                     // positions in all (Ltot)
     uint64_t key0;                 // the one segment's key (no table)
+    int64_t pos0;                  // base of the draws' position count
 };
 
 inline Segments segments(const void* table, int S, int64_t L,
-                         uint64_t key0 = 0) {
-    return Segments{(const int64_t*)table, S, L, key0};
+                         uint64_t key0 = 0, int64_t pos0 = 0) {
+    return Segments{(const int64_t*)table, S, L, key0, pos0};
 }
 
 __device__ __forceinline__ int64_t seg_off(const Segments& g, int s) {

@@ -67,7 +67,7 @@ def _load():
                 [P, P, P, P, I, I, I64, I, I] + [P] * 15 + [P])
             lib.instrain_clonr.restype = I
             lib.instrain_clonr.argtypes = [P, P, P, I, I64, P, I, I64, U64,
-                                           U32, I, P, P]
+                                           I64, U32, I, P, P]
             lib.instrain_cuda_error_string.restype = ct.c_char_p
             lib.instrain_cuda_error_string.argtypes = [I]
             _lib = lib
@@ -174,10 +174,11 @@ def clonR(cum, total, clonR_set, seg: plain.Segments, rarefied_draws: int,
     """Rarefied clonality [M, L] f32 (NaN outside clonR_set).
 
     cum int32 [M, 4, L], total int64 [M, L], clonR_set bool [M, L] (the
-    site_stats kernel's outputs); draw counter (d * m_stride + m, p). The
-    scaffolds of `seg` lie end to end on the position axis, each drawn
-    under its own key with p counted from its start (one scaffold:
-    single_segment)."""
+    site_stats kernel's outputs); draw counter (d * m_stride + m,
+    seg.pos0 + p). The scaffolds of `seg` lie end to end on the position
+    axis, each drawn under its own key with p counted from its start (one
+    scaffold: single_segment; a shard of one scaffold's positions:
+    single_segment with the shard's first position as pos0)."""
     name = "clonR"
     if cum.device.type == "cpu":
         return clonR_plain(cum, total, clonR_set, seg, rarefied_draws,
@@ -199,12 +200,15 @@ def clonR(cum, total, clonR_set, seg: plain.Segments, rarefied_draws: int,
         _require(t.is_contiguous(), name, "inputs must be contiguous")
     _require(seg.L == L and seg.device == cum.device, name,
              "segment table does not match the inputs")
+    _require(0 <= seg.pos0 and seg.pos0 + L < 2 ** 31, name,
+             "positions must lie in [0, 2^31)")
     out = torch.empty((M, L), dtype=torch.float32, device=cum.device)
     lib = _load()
     with torch.cuda.device(cum.device):
         rc = lib.instrain_clonr(cum.data_ptr(), total.data_ptr(),
                                 clonR_set.data_ptr(), M, L, seg.table_ptr(),
-                                seg.S, seg.n_tiles, seg.key0, m_stride,
+                                seg.S, seg.n_tiles, seg.key0, seg.pos0,
+                                m_stride,
                                 rarefied_draws, out.data_ptr(),
                                 _stream(cum))
     _check(rc, name)
@@ -215,10 +219,11 @@ def clonR(cum, total, clonR_set, seg: plain.Segments, rarefied_draws: int,
 clonR.launches = 0
 
 
-def single_segment(L: int, key, device) -> plain.Segments:
+def single_segment(L: int, key, device, pos0: int = 0) -> plain.Segments:
     """The segment table of one scaffold of L positions under `key`
-    (uint32[2]; the compaction kernels read no key)."""
-    return plain.Segments([L], [plain.key_words(key)], device)
+    (uint32[2]; the compaction kernels read no key), its draws at
+    positions from pos0 on (a shard of a longer scaffold)."""
+    return plain.Segments([L], [plain.key_words(key)], device, pos0)
 
 
 def reset_launch_counts() -> None:

@@ -280,13 +280,14 @@ def site_stats(counts, ref_codes, null_lut, freq_lut, key,
 
 
 def clonR_values(cum, total, clonR_set, key, rarefied_draws: int,
-                 m_stride: int):
+                 m_stride: int, pos0: int = 0):
     """Rarefied clonality [M, L] f32 at the cells where clonR_set holds
-    (NaN elsewhere), drawn densely over every cell."""
+    (NaN elsewhere), drawn densely over every cell at positions pos0,
+    pos0 + 1, ... (pos0: the first position of a shard of a scaffold)."""
     cdf, _ = _cdf(cum, total)
     L = cum.shape[2]
     vals = _clonR_values(key, cdf,
-                         torch.arange(L, dtype=torch.int64,
+                         torch.arange(pos0, pos0 + L, dtype=torch.int64,
                                       device=cum.device),
                          rarefied_draws, m_stride)
     return torch.where(clonR_set, vals,
@@ -441,9 +442,12 @@ class Segments:
     end to end, each with its uint32[2] key. `table` is the kernels' copy
     on `device` (csrc/segments.cuh): offsets, first tiles, keys and first
     big tiles; a chunk of one segment has none (None), and its kernels
-    take the key `key0` as an argument instead."""
+    take the key `key0` as an argument instead. `pos0` is the base of
+    every segment's position count in the rarefied draws: 0 for whole
+    scaffolds, the shard's first position for a shard of one scaffold's
+    positions (parallel/mesh.py)."""
 
-    def __init__(self, lengths, keys, device="cpu"):
+    def __init__(self, lengths, keys, device="cpu", pos0: int = 0):
         lengths = np.asarray(lengths, dtype=np.int64).reshape(-1)
         self.keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
         assert len(lengths) == len(self.keys) >= 1 and (lengths >= 1).all()
@@ -458,6 +462,7 @@ class Segments:
         packed = ((self.keys[:, 0].astype(np.uint64) << np.uint64(32)) |
                   self.keys[:, 1].astype(np.uint64))
         self.key0 = int(packed[0])
+        self.pos0 = int(pos0)
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # as the device of a tensor placed on "cuda" reads
@@ -487,10 +492,11 @@ def _slice_positions(full, a: int, b: int):
 
 def clonR_values_seg(cum, total, clonR_set, seg: Segments,
                      rarefied_draws: int, m_stride: int):
-    """clonR_values per segment, under the segment's key."""
+    """clonR_values per segment, under the segment's key, with positions
+    counted from seg.pos0 at the segment's start."""
     return torch.cat([clonR_values(cum[:, :, a:b], total[:, a:b],
                                    clonR_set[:, a:b], seg.keys[s],
-                                   rarefied_draws, m_stride)
+                                   rarefied_draws, m_stride, seg.pos0)
                       for s, (a, b) in enumerate(map(seg.bounds,
                                                      range(seg.S)))], dim=1)
 

@@ -80,9 +80,14 @@ def log_failure(failure_type: str, unit: str, detail: str = ""):
     logging.debug(f"{t} DEBUG FAILURE {failure_type} {unit} {detail}")
 
 
-def setup_logger(loc: str):
-    """DEBUG -> file, INFO -> console (reference: controller.py:445-475)."""
+def setup_logger(loc: Optional[str]):
+    """DEBUG -> file, INFO -> console (reference: controller.py:445-475);
+    with loc None, only INFO -> console (a process that writes no
+    profile directory)."""
     if logging.getLogger("").handlers:
+        return
+    if loc is None:
+        logging.basicConfig(level=logging.INFO, format="%(message)s")
         return
     logging.basicConfig(level=logging.DEBUG,
                         format="%(asctime)s %(levelname)-8s %(message)s",

@@ -18,7 +18,14 @@ Pipeline (reference: load_paired_reads, filter_reads.py:157-199):
 
 The output PairSet holds flat arrays (scaffold id, qname id, mm) — the
 native layout consumed by the pileup kernels — plus dict views matching the
-reference's Rdic contract.
+reference's Rdic contract. Each scaffold's pairs are in the file order of
+their first record on that scaffold, which does not depend on which
+scaffolds a decode covered (see pair_info_from_records).
+
+filter_reads_distributed is the multi-process form over a ranged decode of
+the scaffolds a process owns (instrain_tpu/profile/filter_reads.py:
+444-570): the globally coupled quantities cross the processes in two
+gathers (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -54,6 +61,17 @@ def pair_info_from_records(bam: BamArrays) -> PairInfo:
     """
     Merge records into per-(scaffold, qname) pair entries, preserving the
     reference's first-seen/second-seen insert semantics.
+
+    Entries are sorted by scaffold, then by the record index of the
+    qname's first record on that scaffold: the order in which the
+    scaffold's reads first appear in the (coordinate-sorted) record
+    table, as the reference's per-scaffold pair dicts are filled. Unlike
+    qname_id, which the decoder assigns in the order qnames first appear
+    in everything it decoded, this key does not depend on the decode's
+    scope: a ranged decode of some scaffolds orders their pairs as the
+    full decode does, so the float means of mapping_info and the Rdic key
+    order agree between them. Where no qname has records on two
+    scaffolds, the two keys give the same order.
     """
     n = bam.n_records
     if n == 0:
@@ -98,12 +116,18 @@ def pair_info_from_records(bam: BamArrays) -> PairInfo:
         insert[g2] = np.where(s_stop > f_start, s_stop - f_start,
                               f_stop - s_start)
 
-    return PairInfo(
+    out = PairInfo(
         ref_id=rid[group_start].astype(np.int32),
         qname_id=qid[group_start],
         nm=nm, insert=insert, mapq=mapq, length=length,
         reads=counts.astype(np.int64),
     )
+    # (scaffold, first record on it) order; order[group_start] is each
+    # group's first record, as arange breaks the lexsort's ties
+    perm = np.lexsort((order[group_start], out.ref_id))
+    if (np.diff(perm) < 0).any():
+        out = _subset(out, perm)
+    return out
 
 
 @dataclass
@@ -117,6 +141,9 @@ class PairSet:
     filter_values: Dict[str, object]
     ref_names: List[str]
     qnames: Optional[List[str]] = None
+    # a distributed run's complete Rdic, merged across the processes
+    # (filter_reads_distributed): (the dict, its skip_mm)
+    merged_rdic: Optional[tuple] = None
 
     def scaffold_mask(self, rid: int) -> np.ndarray:
         return (self.info.ref_id == rid) & self.passed
@@ -149,6 +176,12 @@ class PairSet:
     def rdic(self, skip_mm: bool = False) -> Dict[str, object]:
         """Dict view: scaffold -> {qname: mm} (or set, reference
         controller.py:274-281 when skip_mm_profiling)."""
+        if self.merged_rdic is not None:
+            merged, built_skip_mm = self.merged_rdic
+            if built_skip_mm != skip_mm:
+                raise ValueError("the distributed Rdic was merged for "
+                                 "another skip_mm")
+            return merged
         if self.qnames is None:
             raise ValueError("Rdic needs the decoded read names")
         out = {}
@@ -424,10 +457,128 @@ def _mapping_info_table(all_info: PairInfo, info: PairInfo,
                 row[c] = np.nan
         rows.append(row)
 
-    sdb = pd.DataFrame(rows)
+    sdb = pd.DataFrame(rows, columns=["scaffold"] + _TALLY_COLS + _MEAN_COLS)
     adb = pd.DataFrame([_all_scaffolds_row(sdb)])
     out = pd.concat([adb, sdb]).reset_index(drop=True)
     return out[["scaffold"] + _TALLY_COLS + _MEAN_COLS]
+
+
+def _median_from_hist(vals: np.ndarray, cnts: np.ndarray) -> float:
+    """np.median of the multiset {vals[i] x cnts[i]} without building it:
+    the mean, in float64, of the two middle order statistics, as np.median
+    of the sorted values; NaN when it is empty."""
+    n = int(cnts.sum())
+    if n == 0:
+        return float(np.nan)
+    order = np.argsort(vals, kind="stable")
+    vals = vals[order]
+    cum = np.cumsum(cnts[order])
+    k1, k2 = (n - 1) // 2, n // 2  # 0-based middle order statistics
+    v1 = float(vals[np.searchsorted(cum, k1 + 1)])
+    v2 = float(vals[np.searchsorted(cum, k2 + 1)])
+    return (v1 + v2) / 2.0
+
+
+def filter_reads_distributed(bam: BamArrays, cfg: ReadFilterConfig,
+                             scaffolds: List[str], owned: List[str],
+                             skip_mm: bool = False) -> PairSet:
+    """Read filtering of one process of a distributed run, over a ranged
+    decode of the scaffolds it owns (instrain_tpu/profile/
+    filter_reads.py:460-570; reference analogue: the scaffold-sharded
+    filter worker pool, filter_reads.py:743-828).
+
+    Every non-local quantity crosses the processes in two gathers, which
+    every process runs in the same order:
+      1. the insert histogram of the true pairs: the only globally
+         coupled filter input is max_insert = median insert *
+         max_insert_relative (reference: filter_reads.py:213-218), and
+         the merged histogram's median equals np.median of all inserts;
+      2. the per-scaffold mapping_info rows, put in `scaffolds` order on
+         every process before the all_scaffolds row is computed from
+         them, and each process's Rdic entries, merged into one Rdic with
+         a key for every BAM reference in header order (empty where no
+         pair passed), as the one-process run stores it.
+
+    Requires pairing_filter paired_only, the one mode that decides per
+    (scaffold, qname); the others look at a qname's records on every
+    scaffold, and the pipeline decodes and filters everything on every
+    process for them."""
+    if cfg.pairing_filter != "paired_only":
+        raise ValueError("filter_reads_distributed needs pairing_filter "
+                         "paired_only")
+    from ..parallel.distributed import allgather_tables
+
+    owned_set = set(owned)
+    owned_order = [s for s in scaffolds if s in owned_set
+                   and s in bam.name_to_ref_id]
+    all_info = pair_info_from_records(bam)
+    keep_rids = np.array([bam.name_to_ref_id[s] for s in owned_order],
+                         dtype=np.int64)
+    all_info = _subset(all_info, np.isin(all_info.ref_id, keep_rids))
+
+    priority = load_priority_reads(cfg.priority_reads)
+    if priority and bam.qnames is not None:
+        name_to_qid = {n: i for i, n in enumerate(bam.qnames)}
+        priority_ids = np.array(sorted(name_to_qid[p] for p in priority
+                                       if p in name_to_qid), dtype=np.int64)
+    else:
+        priority_ids = np.zeros(0, dtype=np.int64)
+    info = apply_pairing_filter(all_info, cfg.pairing_filter, priority_ids)
+
+    # gather 1: the insert histogram
+    vals, cnts = np.unique(info.insert[info.reads == 2], return_counts=True)
+    hists = allgather_tables([dict(vals=vals, cnts=cnts)])
+    median_insert = _median_from_hist(
+        np.concatenate([h["vals"] for h in hists]),
+        np.concatenate([h["cnts"] for h in hists]))
+    max_insert = median_insert * cfg.max_insert_relative
+
+    results = evaluate_pairs(info, cfg, max_insert)
+    passed = results.all(axis=1)
+    is_priority = np.isin(info.qname_id, priority_ids)
+    local_tbl = _mapping_info_table(all_info, info, results, passed,
+                                    is_priority, priority_ids, owned_order,
+                                    bam)
+    # this process's Rdic entries: qname strings resolve here, where the
+    # decode that numbered them ran
+    local = PairSet(info=info, passed=passed, mm=info.nm.copy(),
+                    mapping_info=local_tbl, filter_values={},
+                    ref_names=list(bam.ref_names), qnames=bam.qnames)
+    rdic_local = {s: d for s, d in local.rdic(skip_mm=skip_mm).items()
+                  if s in owned_set}
+
+    # gather 2: the mapping rows and the Rdic entries
+    gathered = allgather_tables([dict(
+        rows=local_tbl[local_tbl["scaffold"] != "all_scaffolds"],
+        rdic=rdic_local)])
+    rank = {s: i for i, s in enumerate(scaffolds)}
+    # a process that owns no scaffold sends an empty frame: left out, so
+    # that it cannot change the columns' dtypes
+    frames = [g["rows"] for g in gathered if len(g["rows"])]
+    sdb = pd.concat(frames) if frames else gathered[0]["rows"]
+    sdb = sdb.sort_values("scaffold", key=lambda c: c.map(rank),
+                          kind="stable").reset_index(drop=True)
+    table = pd.concat([pd.DataFrame([_all_scaffolds_row(sdb)]),
+                       sdb]).reset_index(drop=True)
+    table = table[["scaffold"] + _TALLY_COLS + _MEAN_COLS]
+    merged: Dict[str, object] = {}
+    for g in gathered:
+        merged.update(g["rdic"])
+    full_rdic = {s: merged.get(s, set() if skip_mm else {})
+                 for s in bam.ref_names}
+
+    values = {
+        "min_read_ani": cfg.min_read_ani,
+        "max_insert": max_insert,
+        "min_insert": cfg.min_insert,
+        "min_mapq": cfg.min_mapq,
+        "pairing_filter": cfg.pairing_filter,
+        "max_insert_relative": cfg.max_insert_relative,
+    }
+    return PairSet(info=info, passed=passed, mm=info.nm.copy(),
+                   mapping_info=table, filter_values=values,
+                   ref_names=list(bam.ref_names), qnames=bam.qnames,
+                   merged_rdic=(full_rdic, skip_mm))
 
 
 def write_mapping_info(df: pd.DataFrame, location: Optional[str],

@@ -20,6 +20,7 @@ import torch
 from ..io.bam import BamArrays
 from ..kernels import cuda_sitestats, nullmodel
 from ..kernels.sitestats import freq_min_count_lut
+from ..parallel.mesh import default_device
 from .filter_reads import PairSet
 
 
@@ -109,9 +110,10 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
                    null_lut, freq_lut, min_cov: int = 5,
                    rarefied_coverage: int = 50, seed: int = 42,
                    max_chunk: int = 1 << 20,
-                   device="cpu") -> ScaffoldStats:
+                   device=None) -> ScaffoldStats:
     """
-    Run the site-stats kernels for one scaffold on `device`.
+    Run the site-stats kernels for one scaffold on `device` (None: the
+    current CUDA device; raises without a GPU).
 
     Every output is position-local, so scaffolds longer than `max_chunk`
     are processed in position chunks and concatenated on host — one
@@ -126,7 +128,7 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
     from .compact import _fold_keys
     counts = pileup.counts
     M, _, L = counts.shape
-    dev = torch.device(device)
+    dev = default_device(device)
     null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=dev)
     freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=dev)
     m_stride = max(_bucket(M, 8), 8)

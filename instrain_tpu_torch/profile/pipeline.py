@@ -1,7 +1,9 @@
 """
 The `profile` operation: BAM + FASTA -> profile directory — the
-counterpart of instrain_tpu/profile/pipeline.py, single process, with the
-dense, hybrid and batch engines.
+counterpart of instrain_tpu/profile/pipeline.py, with the dense, hybrid
+and batch engines, on one device, over a mesh of devices
+(--mesh_devices, parallel/mesh.py) or over several processes
+(--distributed, parallel/distributed.py).
 
 Steps (reference: controller.py:144-169): decode the BAM natively, filter
 read pairs, then per scaffold build the pileup counts, run the site-stats
@@ -18,6 +20,18 @@ the tables step. Unless --skip_plot_generation, the figures are drawn
 from the stored profile at the end (plotting/controller.py: host
 matplotlib, no device work); a plotting failure is logged and the run
 goes on.
+
+With --mesh_devices N > 1 the hybrid engine splits each scaffold's
+positions over N devices and the batch engine sends its chunks to them in
+turn (profile/compact.py); the tables are the one-device run's, byte for
+byte. Under --distributed each process owns a share of the scaffolds:
+with a .bai and the paired_only filter it decodes only those (ranged),
+filters them with two gathers of the globally coupled quantities
+(filter_reads_distributed), and otherwise decodes and filters everything;
+it profiles only its scaffolds, and the payloads meet in one gather,
+after which process 0 (or, with distributed_store "all", every process)
+writes the profile directory. Every process runs the same collectives in
+the same order, whatever it owns.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ from ..io.bam import decode_bam
 from ..kernels.cuda_sitestats import KernelError
 from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
                            report_run_stats)
+from ..parallel import distributed as dist_mod
+from ..parallel.mesh import Mesh, make_mesh, resolve_device
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 from . import compact as compact_mod
@@ -44,13 +60,13 @@ from . import genes as genes_mod
 from . import genome as genome_mod
 from . import linkage as linkage_mod
 from . import tables
-from .filter_reads import filter_reads
+from .filter_reads import filter_reads, filter_reads_distributed
 from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      make_luts, run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
-# per phase (decode, filter, pileup, kernels, tables, store, genome,
-# plots) of a profile run, and in "genes" the gene file's parse and the
+# per phase (decode, filter, pileup, kernels, tables, gather, store,
+# genome, plots) of a profile run, and in "genes" the gene file's parse and the
 # gene calls (the calls lie inside "tables"); None adds no timers.
 # chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
@@ -74,13 +90,6 @@ class _phase:
         return False
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error for an option this port does not implement yet."""
-    return NotImplementedError(
-        f"{what} is not ported to instrain_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, {item})")
-
-
 def check_supported(cfg: ProfileConfig) -> None:
     """Raise for every option of `profile` that this port does not run,
     instead of ignoring it."""
@@ -91,20 +100,9 @@ def check_supported(cfg: ProfileConfig) -> None:
             f"--engine {cfg.engine} is the JAX package's Pallas TPU path; "
             f"its counterpart here is --engine dense (ROADMAP.md, Queue "
             f"2: K1)")
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
-        raise unported("--mesh_devices", "item 7: multiple GPUs and hosts")
-
-
-def resolve_device(name: str) -> torch.device:
-    """cfg.device -> torch.device. "cuda" needs a GPU: no CPU fallback."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if name == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: no CUDA device is available "
-                               "(pass --device cpu to run on the CPU)")
-        return torch.device("cuda", torch.cuda.current_device())
-    raise ValueError(f"unknown device {name!r} (cuda or cpu)")
+    if cfg.distributed_store not in ("primary", "all"):
+        raise ValueError(f"distributed_store {cfg.distributed_store!r} "
+                         f"(primary or all)")
 
 
 # The hybrid and batch engines hold a scaffold's whole padded [Mp, 4, Lp]
@@ -112,7 +110,8 @@ def resolve_device(name: str) -> torch.device:
 # the JAX package sends the scaffold to the position-chunked dense engine
 # (instrain_tpu/profile/pipeline.py:475-481, :584-594). The port keeps
 # its bound, although the card holds more: the engine decides the clonR
-# draws' keys on scaffolds over 1 Mb.
+# draws' keys on scaffolds over 1 Mb. Over a mesh of n devices the bound
+# is n times this (:474-482, :594).
 HYBRID_MAX_CELLS = 1 << 27
 
 
@@ -122,17 +121,21 @@ BATCH_MIN_SCAFFOLDS = 16
 
 
 def resolve_run_engine(cfg_engine: str, device: torch.device,
-                       n_scaffolds: int) -> str:
-    """The engine of a run of n_scaffolds kept scaffolds, as the JAX
-    package picks it (pipeline.py:239-246, :255, :305-306): auto is dense
-    on the CPU, and on a GPU batch from BATCH_MIN_SCAFFOLDS scaffolds on
-    and hybrid below; batch with one scaffold runs hybrid."""
+                       n_scaffolds: int, shards: int = 1) -> str:
+    """The engine of a run of n_scaffolds kept scaffolds (those the
+    process owns) over `shards` devices, as the JAX package picks it
+    (pipeline.py:239-246, :255, :305-306, :447-450): auto is dense on the
+    CPU without a mesh, and otherwise batch from BATCH_MIN_SCAFFOLDS
+    scaffolds on and hybrid below; over a mesh, dense runs hybrid
+    (position-sharded); batch with one scaffold runs hybrid."""
     engine = cfg_engine
     if engine == "auto":
-        if device.type == "cpu":
+        if device.type == "cpu" and shards == 1:
             return "dense"
         engine = ("batch" if n_scaffolds >= BATCH_MIN_SCAFFOLDS
                   else "hybrid")
+    elif engine == "dense" and shards > 1:
+        engine = "hybrid"
     if engine == "batch" and n_scaffolds <= 1:
         engine = "hybrid"
     return engine
@@ -145,11 +148,13 @@ INT16_MAX = 32767
 
 
 def resolve_engine(cfg_engine: str, device: torch.device, M: int, L: int,
-                   skip_mm: bool = False, counts=None) -> str:
+                   skip_mm: bool = False, counts=None,
+                   shards: int = 1) -> str:
     """The engine one scaffold of [M, L] runs outside the batch engine, as
     the JAX package picks it (pipeline.py:451-453, :458-481): auto is dense
     on the CPU and hybrid on a GPU; hybrid goes dense when the extent of
-    the pileup the JAX package builds exceeds HYBRID_MAX_CELLS. That
+    the pileup the JAX package builds exceeds HYBRID_MAX_CELLS times the
+    shards it is split over. That
     pileup is unpadded, M * L, under skip_mm (M is then 1) or when an
     exact-mm count of `counts` (the scaffold's [M, 4, L] pileup; only its
     max() is read, and only when the padded extent is over the bound)
@@ -160,11 +165,12 @@ def resolve_engine(cfg_engine: str, device: torch.device, M: int, L: int,
         engine = "dense" if device.type == "cpu" else "hybrid"
     if engine != "hybrid":
         return engine
+    bound = HYBRID_MAX_CELLS * shards
     cells = max(_bucket(M, 8), 8) * max(_bucket(L, 4096), 4096)
-    if cells > HYBRID_MAX_CELLS and (
+    if cells > bound and (
             skip_mm or (counts is not None and counts.max() > INT16_MAX)):
         cells = M * L
-    return "dense" if cells > HYBRID_MAX_CELLS else engine
+    return "dense" if cells > bound else engine
 
 
 @dataclass
@@ -179,12 +185,35 @@ class ScaffoldProfileResult:
     gene_results: Optional[tuple] = None
 
 
+def writes_profile(cfg: ProfileConfig) -> bool:
+    """Whether this process writes the profile directory: in a run of one
+    process, yes; of several, process 0, or every process under
+    distributed_store "all" (each then needs a directory of its own)."""
+    return (dist_mod.process_count() == 1 or cfg.distributed_store == "all"
+            or dist_mod.process_index() == 0)
+
+
 def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
-            output: Optional[str] = None) -> ProfileDir:
-    """Run the profile operation; returns the profile directory."""
+            output: Optional[str] = None,
+            mesh: Optional[Mesh] = None) -> Optional[ProfileDir]:
+    """Run the profile operation; returns the profile directory (None in
+    a process of a distributed run that writes none: writes_profile).
+    `mesh` (parallel/mesh.make_mesh, whose devices may repeat) takes the
+    place of cfg.mesh_devices; the device of the dense path and of
+    linkage is then its first."""
     check_supported(cfg)
     device = resolve_device(cfg.device)
+    if mesh is not None:
+        device = mesh.devices[0]
+    elif cfg.mesh_devices and cfg.mesh_devices > 1:
+        # the cards from the current one on (the CLI makes cuda:LOCAL_RANK
+        # * N current under torchrun), or N shards of the CPU
+        mesh = make_mesh(cfg.mesh_devices, device_type=device.type)
     cfg.apply_database_mode()
+    if not writes_profile(cfg):
+        # a peer of process 0: it profiles its share and sends it, and
+        # touches no file of the directory process 0 writes
+        return _profile_impl(bam_path, fasta_path, cfg, None, device, mesh)
     isdir = ProfileDir(output or cfg.output)
 
     # per-run DEBUG file log (reference: controller.setup_logger writes
@@ -200,7 +229,8 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         root.setLevel(logging.DEBUG)
     root.addHandler(fh)
     try:
-        return _profile_impl(bam_path, fasta_path, cfg, isdir, device)
+        return _profile_impl(bam_path, fasta_path, cfg, isdir, device,
+                             mesh)
     finally:
         root.removeHandler(fh)
         root.setLevel(old_level)
@@ -208,7 +238,8 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
 
 
 def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
-                  isdir: ProfileDir, device: torch.device) -> ProfileDir:
+                  isdir: Optional[ProfileDir], device: torch.device,
+                  mesh: Optional[Mesh]) -> Optional[ProfileDir]:
     log_checkpoint("main_profile", "filter_reads", "start")
     registry = fasta_io.ScaffoldRegistry.from_fasta(
         fasta_path, window_length=cfg.window_length,
@@ -217,18 +248,41 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
             cfg.scaffolds_to_profile))
     ref_seqs = {n: fasta_io.CODE2BASE[np.minimum(registry.codes[n], 4)]
                 for n in registry.names}
+    # several processes: each decodes only the scaffolds it owns, where
+    # the plan allows it (instrain_tpu/profile/pipeline.py:117-137)
+    multi_host = dist_mod.process_count() > 1
+    rank = dist_mod.process_index()
+    owned = (_plan_sharded_decode(bam_path, registry, cfg) if multi_host
+             else None)
     with _phase("decode"):
         bam = decode_bam(bam_path, ref_seqs=ref_seqs,
-                         threads=cfg.processes, baq=False)
+                         threads=cfg.processes, baq=False, scaffolds=owned)
+    if owned is not None:
+        if bam.ranged:
+            logging.info(f"sharded decode: host {rank} ranged-decoded "
+                         f"{len(owned)} of {len(registry.names)} scaffolds")
+        else:
+            logging.info("ranged decode unavailable; this host decoded the "
+                         "full BAM (filtering stays sharded)")
     with _phase("filter"):
-        if cfg.filter.maximum_reads:
-            _subsample_bam(bam, cfg.filter.maximum_reads, cfg.seed)
-        pairs = filter_reads(bam, cfg.filter, scaffolds=registry.names)
+        if owned is not None:
+            pairs = filter_reads_distributed(
+                bam, cfg.filter, registry.names, owned,
+                skip_mm=cfg.skip_mm_profiling)
+        else:
+            if cfg.filter.maximum_reads:
+                _subsample_bam(bam, cfg.filter.maximum_reads, cfg.seed)
+            pairs = filter_reads(bam, cfg.filter, scaffolds=registry.names)
 
+    # several processes: under "primary" (the default) only process 0
+    # writes the profile directory, its read results included, also on
+    # the zero-pair abort; "all": every process writes a whole one
+    primary_peer = isdir is None
     # read-filtering results (reference: controller.py:260-322)
-    with _phase("store"):
-        _store_read_results(isdir, bam, pairs, bam_path, fasta_path,
-                            registry, cfg)
+    if not primary_peer:
+        with _phase("store"):
+            _store_read_results(isdir, bam, pairs, bam_path, fasta_path,
+                                registry, cfg)
     total_pairs = int(pairs.mapping_info["filtered_pairs"].iloc[0])
     if total_pairs == 0:
         raise RuntimeError(
@@ -245,6 +299,16 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         keep = _filter_genome_coverage(keep, registry, s2p,
                                        pairs.mean_pair_length, cfg)
     keep.sort(key=lambda n: s2p.get(n, 0), reverse=True)
+    keep_local = keep
+    if multi_host:
+        # the decode's owner, or (replicated decode) the canonical
+        # assignment by filtered pairs (:199-222)
+        mine = set(owned if owned is not None else dist_mod.my_scaffolds(
+            {n: s2p.get(n, 0) for n in keep}))
+        keep_local = [n for n in keep if n in mine]
+        logging.info(f"multi-host: process {rank} of "
+                     f"{dist_mod.process_count()} owns {len(keep_local)} of "
+                     f"{len(keep)} scaffolds")
 
     null_lut, freq_lut = make_luts(cfg.variant)
     null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
@@ -255,21 +319,32 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         with _phase("genes"):
             gene_data = genes_mod.parse_genes(cfg.gene_file)
 
-    engine = resolve_run_engine(cfg.engine, device, len(keep))
+    shards = mesh.size if mesh is not None else 1
+    engine = resolve_run_engine(cfg.engine, device, len(keep_local), shards)
+    if mesh is not None:
+        logging.info(f"Sharding the profile kernels over {shards} devices "
+                     f"({'positions' if engine == 'hybrid' else 'chunks'})")
     if engine == "dense":
         finals = []
-        for name in keep:
+        for name in keep_local:
             logging.debug(get_worker_log("SplitProfile", name, "start"))
             res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
                                         null_t, freq_t, device, gene_data)
             logging.debug(get_worker_log("SplitProfile", name, "end"))
             if res is not None:
                 with _phase("tables"):
-                    finals.append(_finalize_result(res, cfg))
+                    finals.append(_finalize_result(res, cfg, bam.qnames))
     else:
-        finals = _profile_scaffolds_compact(bam, pairs, registry, keep, cfg,
-                                            engine, null_t, freq_t, device,
-                                            gene_data)
+        finals = _profile_scaffolds_compact(bam, pairs, registry, keep_local,
+                                            cfg, engine, null_t, freq_t,
+                                            device, gene_data, mesh)
+    if multi_host:
+        with _phase("gather"):
+            finals = _gather_results(finals, keep, unpack=not primary_peer)
+        if primary_peer:
+            # this process's scaffolds are in the gather: process 0 writes
+            log_checkpoint("main_profile", "profile_scaffolds", "end")
+            return None
     with _phase("store"):
         _store_results(isdir, finals, cfg, gene_data)
         log_checkpoint("main_profile", "profile_scaffolds", "end")
@@ -405,23 +480,24 @@ def _build_pileup(bam, pairs, rid, L, cfg):
     return pileup
 
 
-def _oversize(pairs, rid, L, cfg) -> bool:
+def _oversize(pairs, rid, L, cfg, shards: int = 1) -> bool:
     """Whether the batch engine sends a scaffold to the position-chunked
     dense path, by the JAX package's estimate before the pileup is built
     (pipeline.py:584-594): max(ceil8(n_mm), 8) * max(ceil4096(L), 4096)
-    padded cells over HYBRID_MAX_CELLS, with n_mm the distinct mm values
-    of the scaffold's pairs; never with skip_mm_profiling."""
+    padded cells over HYBRID_MAX_CELLS times the mesh's shards, with n_mm
+    the distinct mm values of the scaffold's pairs; never with
+    skip_mm_profiling."""
     if cfg.skip_mm_profiling:
         return False
     qids, mms = pairs.r2m_for_scaffold(rid)
     n_mm = len(np.unique(mms)) if len(qids) else 0
     return (max(_bucket(max(n_mm, 1), 8), 8) * max(_bucket(L, 4096), 4096)
-            > HYBRID_MAX_CELLS)
+            > HYBRID_MAX_CELLS * shards)
 
 
 def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
-                               null_lut, freq_lut, device,
-                               gene_data) -> List[Dict]:
+                               null_lut, freq_lut, device, gene_data,
+                               mesh: Optional[Mesh] = None) -> List[Dict]:
     """The batch and hybrid engines, through one streaming loop
     (compact.run_site_stats_compact_stream): pileups are built as the
     engine asks for them, and each chunk's scaffolds are turned into
@@ -433,8 +509,12 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     pileup (_oversize), for hybrid by the pileup's own extent
     (resolve_engine). A scaffold whose pileup or tables fail is logged and
     dropped; a kernel or CUDA fault fails the run. With gene_data, a
-    chunk's genes are profiled here too, while the next chunk runs.
+    chunk's genes are profiled here too, while the next chunk runs. With a
+    mesh, hybrid splits each scaffold's positions over its devices and
+    batch sends its chunks to them in turn, under a one-launch bound as
+    many times larger; the dense path runs on `device`.
     Returns the finalized payloads in `keep` order."""
+    shards = mesh.size if mesh is not None else 1
     metas: Dict[int, tuple] = {}
     dense: List[tuple] = []
     finals: Dict[int, Dict] = {}
@@ -451,7 +531,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                     if engine == "hybrid":
                         _inject_failure(name, cfg)
                     oversize = (engine == "batch" and
-                                _oversize(pairs, rid, L, cfg))
+                                _oversize(pairs, rid, L, cfg, shards))
                     pu = _build_pileup(bam, pairs, rid, L, cfg)
                 except Exception as e:
                     _contain(name, e)
@@ -461,8 +541,8 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
             if engine == "hybrid":
                 oversize = resolve_engine(
                     engine, device, pu.counts.shape[0], L,
-                    skip_mm=cfg.skip_mm_profiling, counts=pu.counts
-                ) == "dense"
+                    skip_mm=cfg.skip_mm_profiling, counts=pu.counts,
+                    shards=shards) == "dense"
             i = len(metas)
             metas[i] = (name, L, registry.codes[name])
             if oversize:
@@ -475,7 +555,8 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
         with _phase("tables"):
             try:
                 finals[i] = _finalize_result(_result_from_stats(
-                    name, L, stats, ref_codes, cfg, device, gene_data), cfg)
+                    name, L, stats, ref_codes, cfg, device, gene_data), cfg,
+                    bam.qnames)
             except Exception as e:
                 _contain(name, e)
         logging.debug(get_worker_log("SplitProfile", name, "end"))
@@ -485,7 +566,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     chunk_cells = compact_mod.CHUNK_CELLS if engine == "batch" else 0
     for i, stats in compact_mod.run_site_stats_compact_stream(
             items(), null_lut, freq_lut, with_dense=True, device=device,
-            max_chunk_cells=chunk_cells, phase=_phase, **kw):
+            max_chunk_cells=chunk_cells, phase=_phase, mesh=mesh, **kw):
         handle(i, stats)
     for i, pu in dense:
         with _phase("kernels"):
@@ -532,10 +613,11 @@ _SPECIAL_DESCR = {
 }
 
 
-def _finalize_result(r: ScaffoldProfileResult, cfg) -> Dict:
+def _finalize_result(r: ScaffoldProfileResult, cfg, qnames) -> Dict:
     """A ScaffoldProfileResult as a plain payload: tables, the
-    covT/clonT views and the linkage capture (the stats object holds
-    views into native decoder memory and is dropped here)."""
+    covT/clonT views and the linkage capture, its reads by name (the
+    stats object holds views into native decoder memory and is dropped
+    here). The payload is what crosses processes in a distributed run."""
     out = dict(
         name=r.name, length=r.length,
         snp_table=r.snp_table,
@@ -545,7 +627,7 @@ def _finalize_result(r: ScaffoldProfileResult, cfg) -> Dict:
         covT=tables.covT_view(r.stats),
         clonT=tables.clonT_view(r.stats),
         clonTR=tables.clonT_view(r.stats, rarefied=True),
-        reads_to_snvs=_reads_to_snvs(r.stats),
+        reads_to_snvs=_reads_to_snvs(r.stats, qnames),
         gene_results=r.gene_results,
     )
     if cfg.store_everything:
@@ -613,20 +695,109 @@ def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data):
                   if r["gene_results"] is not None]) for i in range(4)])
 
 
-def _reads_to_snvs(stats: ScaffoldStats) -> Dict[int, Dict[str, list]]:
-    """mm -> qname_id -> ['pos:base'] for captured linkage reads."""
+def _reads_to_snvs(stats: ScaffoldStats,
+                   qnames) -> Dict[int, Dict[str, list]]:
+    """mm -> read name -> ['pos:base'] for captured linkage reads
+    (reference: update_linked_reads, keyed by the read's name). The JAX
+    package keys them by the decoder's qname_id, which depends on what
+    the decode covered (a ranged decode numbers reads anew)."""
     from collections import defaultdict
     from .linkage import counted_snv_events
     pos, base, mm_idx, qn = counted_snv_events(stats)
     if len(pos) == 0:
         return {}
     mm = stats.pileup.mm_values[mm_idx]
+    # a str object of its own per read and scaffold: a name with reads on
+    # two scaffolds is then two objects in one process as in two, and the
+    # stored pickle (which refers back to repeated objects) has the same
+    # bytes wherever each scaffold was profiled
+    names = {q: qnames[q].encode().decode() for q in set(qn.tolist())}
     out: Dict[int, Dict[str, list]] = defaultdict(lambda: defaultdict(list))
     bchar = "ACTG"
     for p, b, m, q in zip(pos.tolist(), base.tolist(), mm.tolist(),
                           qn.tolist()):
-        out[m][q].append(f"{p}:{bchar[b]}")
+        out[m][names[q]].append(f"{p}:{bchar[b]}")
     return {m: dict(v) for m, v in out.items()}
+
+
+def _pack_view(view):
+    """A covT/clonT view as numpy pairs (int32 positions, values): the
+    form it crosses processes in."""
+    return {mm: (s.index.values.astype(np.int32), s.values)
+            for mm, s in view.items()}
+
+
+def _unpack_view(packed):
+    return {mm: pd.Series(v, index=i.astype(np.int64))
+            for mm, (i, v) in packed.items()}
+
+
+def _gather_results(finals: List[Dict], keep: List[str],
+                    unpack: bool = True) -> List[Dict]:
+    """Every process's payloads on every process, in `keep` order (the
+    one-process order), their covT/clonT views packed as numpy pairs
+    while they cross (instrain_tpu/profile/pipeline.py:319-360); with
+    unpack False (a process that will not write) they stay packed."""
+    for fin in finals:
+        for attr in _SPECIAL_DESCR:
+            fin[attr] = _pack_view(fin[attr])
+    finals = dist_mod.allgather_tables(finals)
+    order = {n: i for i, n in enumerate(keep)}
+    finals.sort(key=lambda r: order[r["name"]])
+    if unpack:
+        for fin in finals:
+            for attr in _SPECIAL_DESCR:
+                fin[attr] = _unpack_view(fin[attr])
+    return finals
+
+
+def _plan_sharded_decode(bam_path, registry, cfg) -> Optional[List[str]]:
+    """The scaffolds this process decodes and profiles in a run of
+    several processes, planned before any decode from the .bai's
+    compressed byte extent of each reference (io/bai.py:read_ref_extents;
+    a proxy for its reads) by assign_scaffolds_to_hosts
+    (instrain_tpu/profile/pipeline.py:900-970). None (every process
+    decodes and filters everything, and owns its share of the kept
+    scaffolds by filtered pairs) where an option couples the scaffolds:
+      - pairing_filter other than paired_only (non_discordant and
+        all_reads look at a qname's records on every scaffold);
+      - detailed_mapping_info (one table over every pair);
+      - maximum_reads (its subsample is drawn over the whole BAM);
+      - no .bai.
+    The plan is a function of the BAM and the configuration; a gather of
+    its digest, which every process runs, checks that all computed the
+    same one, and where any differs or failed, every process replicates,
+    so that the later collectives stay aligned."""
+    import hashlib
+
+    from ..io.bai import find_bai, read_bam_ref_names, read_ref_extents
+    weights, bai = None, None
+    if (cfg.filter.pairing_filter == "paired_only" and
+            not cfg.detailed_mapping_info and not cfg.filter.maximum_reads):
+        bai = find_bai(bam_path)
+    if bai is not None:
+        try:
+            extents = read_ref_extents(bai)
+            names = set(registry.names)
+            weights = {n: int(extents[i]) if i < len(extents) else 0
+                       for i, n in enumerate(read_bam_ref_names(bam_path))
+                       if n in names} or None
+        except Exception as e:
+            logging.info(f"sharded decode unavailable ({e}); replicating")
+    digest = ""
+    if weights is not None:
+        h = hashlib.sha256()
+        for n in sorted(weights):
+            h.update(f"{n}\0{weights[n]}\n".encode())
+        digest = h.hexdigest()
+    digests = dist_mod.allgather_tables([digest])
+    if not digest or any(d != digest for d in digests):
+        if digest:
+            logging.info("sharded-decode plans differ across hosts; "
+                         "replicating decode and filter everywhere")
+        return None
+    return dist_mod.assign_scaffolds_to_hosts(
+        weights, dist_mod.process_count())[dist_mod.process_index()]
 
 
 def _subsample_bam(bam, maximum_reads: int, seed: int):

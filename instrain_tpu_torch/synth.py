@@ -13,6 +13,10 @@ sample mapped to it, and a scaffold-to-genome file; each genome has two
 strain haplotypes, and each sample carries one of them at its own
 coverage.
 
+synth_shared_reads: synth's layout where some read names have a pair
+on two scaffolds, the input on which the decoder's qname numbering
+depends on which scaffolds a decode covered.
+
 synth_genes: gene files for a synth FASTA — a prodigal-style .fna and a
 minimal GenBank file — laid out so that profile -g meets every case of
 the gene code (see its docstring).
@@ -120,6 +124,41 @@ def synth_samples(workdir: str, n_samples: int, S: int, L: int,
     return fasta, bams, stb
 
 
+def synth_shared_reads(workdir: str, S: int = 3, L: int = 6000,
+                       COV: int = 40, seed: int = 5, share: float = 0.25
+                       ) -> Tuple[str, str, int]:
+    """synth's scaffolds and read pairs, but on every scaffold after the
+    first a `share` of the pairs, at random places, carry read names of
+    the previous scaffold's last pairs in reverse order: those names have
+    a pair on each of two scaffolds. In a full decode such a name is
+    numbered where it first appears, on the earlier scaffold; in a ranged
+    decode of the later scaffold, where it appears there. Writes
+    <workdir>/shared.fasta, shared.bam and its .bai; returns (fasta, bam,
+    number of read pairs)."""
+    rng = np.random.default_rng(seed)
+    fasta = os.path.join(workdir, "shared.fasta")
+    bam = os.path.join(workdir, "shared.bam")
+    n_pairs = int(L * COV / (2 * READ))
+    refs = [BASES[rng.integers(0, 4, L)] for _ in range(S)]
+    with open(fasta, "w") as f:
+        for s, seq in enumerate(refs):
+            f.write(f">scaf_{s}\n{seq.tobytes().decode()}\n")
+    parts = [bam_header([(f"scaf_{s}", L) for s in range(S)])]
+    prev = None
+    for s in range(S):
+        names = s * n_pairs + np.arange(n_pairs, dtype=np.int64)
+        if prev is not None:
+            k = int(n_pairs * share)
+            names[np.sort(rng.choice(n_pairs, k, replace=False))] = \
+                prev[::-1][:k]
+        parts.append(_scaffold_records(rng, s, refs[s], L, n_pairs, 0,
+                                       names=names))
+        prev = names
+    write_bgzf(bam, b"".join(parts))
+    make_bai(bam)
+    return fasta, bam, S * n_pairs
+
+
 def _write_sample(bam: str, seed, haps: List[np.ndarray],
                   refs: List[np.ndarray], cov: float) -> None:
     """One synth_samples BAM: reads from each scaffold's haplotype."""
@@ -135,11 +174,12 @@ def _write_sample(bam: str, seed, haps: List[np.ndarray],
 
 
 def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,
-                      qid0: int, truth: Optional[np.ndarray] = None
-                      ) -> bytes:
+                      qid0: int, truth: Optional[np.ndarray] = None,
+                      names: Optional[np.ndarray] = None) -> bytes:
     """Coordinate-sorted BAM records of one scaffold's read pairs, read
     from `ref`; NM counts mismatches against `truth` (the mapping
-    reference) where it is given, else the planted SNVs a read carries."""
+    reference) where it is given, else the planted SNVs a read carries.
+    Pair k is named r<qid0 + k>, or r<names[k]> where names is given."""
     snv_pos = rng.choice(L, L // 1000, replace=False)
     snv_alt = BASES[(np.searchsorted(BASES, ref[snv_pos]) +
                      rng.integers(1, 4, len(snv_pos))) % 4]
@@ -169,7 +209,8 @@ def _scaffold_records(rng, s: int, ref: np.ndarray, L: int, n_pairs: int,
     first = np.arange(n) % 2 == 0
     mate = np.empty_like(pos)
     mate[0::2], mate[1::2] = pos[1::2], pos[0::2]
-    q = qid0 + np.arange(n, dtype=np.int64) // 2
+    q = (qid0 + np.arange(n, dtype=np.int64) // 2 if names is None
+         else names[np.arange(n) // 2])
     digits = np.ones(n, dtype=np.int64)
     p10 = 10
     while (q >= p10).any():

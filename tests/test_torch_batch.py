@@ -174,12 +174,13 @@ def test_batch_matches_jax_batch_and_port_hybrid():
     # a small chunk bound: the M = 4 and M = 9 buckets split into chunks
     got = PC.run_site_stats_compact_batch(
         list(pus), list(refs), NULL_LUT, FREQ_LUT, seed=8, with_dense=True,
-        max_chunk_cells=3 * 4 * 1300)
+        max_chunk_cells=3 * 4 * 1300, device="cpu")
     want = JC.run_site_stats_compact_batch(
         list(jpus), list(refs), NULL_LUT, FREQ_LUT, seed=8, with_dense=True)
     for pu, ref, js, ps in zip(pus, refs, want, got):
         assert isinstance(ps, PC.HybridStats) and ps.pileup is pu
-        hy = PC.run_site_stats_hybrid(pu, ref, NULL_LUT, FREQ_LUT, seed=8)
+        hy = PC.run_site_stats_hybrid(pu, ref, NULL_LUT, FREQ_LUT, seed=8,
+                                      device="cpu")
         assert_stats_equal(hy, ps, pu.name)
         for k in ("clon", "clonR"):
             _bits_equal(getattr(hy, k), getattr(ps, k), (pu.name, k))

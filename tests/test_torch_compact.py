@@ -205,8 +205,10 @@ def test_compact_tables_match_jax(case):
     packages, exact."""
     jpu, ppu, ref = _pileups(*case)
     js = JC.run_site_stats_hybrid(jpu, ref, NULL_LUT, FREQ_LUT, seed=5)
-    ps = PC.run_site_stats_hybrid(ppu, ref, NULL_LUT, FREQ_LUT, seed=5)
-    pc = PC.run_site_stats_compact(ppu, ref, NULL_LUT, FREQ_LUT, seed=5)
+    ps = PC.run_site_stats_hybrid(ppu, ref, NULL_LUT, FREQ_LUT, seed=5,
+                                  device="cpu")
+    pc = PC.run_site_stats_compact(ppu, ref, NULL_LUT, FREQ_LUT, seed=5,
+                                   device="cpu")
     for a, b in zip(JC.snp_tables_compact(js, ref),
                     PC.snp_tables_compact(ps, ref)):
         pd.testing.assert_frame_equal(a, b, check_exact=True)
@@ -402,11 +404,12 @@ def test_hybrid_draws_one_key_per_scaffold():
     ppu = ScaffoldPileup(name="s", rid=3, length=L, mm_values=mm,
                          counts=counts)
     want = JC.run_site_stats_hybrid(jpu, ref, NULL_LUT, FREQ_LUT, seed=9)
-    got = PC.run_site_stats_hybrid(ppu, ref, NULL_LUT, FREQ_LUT, seed=9)
+    got = PC.run_site_stats_hybrid(ppu, ref, NULL_LUT, FREQ_LUT, seed=9,
+                                   device="cpu")
     _assert_bits_equal(want.clonR, got.clonR, "clonR")
     assert np.isfinite(got.clonR).all()
     dense = run_site_stats(ppu, ref, NULL_LUT, FREQ_LUT, seed=9,
-                           max_chunk=chunk).clonR
+                           max_chunk=chunk, device="cpu").clonR
     _assert_bits_equal(got.clonR[:, :chunk], dense[:, :chunk], "chunk 0")
     assert (got.clonR[:, chunk:] != dense[:, chunk:]).mean() > 0.5
 

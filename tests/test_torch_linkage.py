@@ -130,14 +130,15 @@ def _ref_codes(fasta):
 def _hybrid_stats(fasta, bam):
     ref = _ref_codes(fasta)
     out = []
-    for decode, filt, pu_mod, cfg, comp in (
-            (jax_decode, JF, JPU, JaxFilterConfig(), JC),
-            (port_decode, PF, PPU, ReadFilterConfig(), PC)):
+    for decode, filt, pu_mod, cfg, comp, kw in (
+            (jax_decode, JF, JPU, JaxFilterConfig(), JC, {}),
+            (port_decode, PF, PPU, ReadFilterConfig(), PC,
+             {"device": "cpu"})):
         b = decode(bam, baq=False)
         pairs = filt.filter_reads(b, cfg)
         pu = pu_mod.build_scaffold_pileup(b, pairs, 0, len(ref))
         out.append(comp.run_site_stats_hybrid(pu, ref, NULL_LUT, FREQ_LUT,
-                                              seed=3))
+                                              seed=3, **kw))
     return out
 
 
