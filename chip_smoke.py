@@ -10,16 +10,21 @@ Phases (each prints its own lines; the first failure exits non-zero):
   1. environment: torch/CUDA versions, the card, host packages;
   2. build: the CUDA kernels (nvcc, sm_90a, one process per source) and
      the native BAM decoder (g++) from this checkout's sources, with the
-     seconds each took; then `check_deps`, whose report names the card
-     and the CUDA build and finds both libraries built;
+     seconds each took, and beside them k7_peak.cu (the b1 tensor-core
+     product's rate, which bounds K7); then `check_deps`, whose report
+     names the card and the CUDA build and finds both libraries built;
   3. kernels: the site-stats and clonR kernels against their plain
      PyTorch versions on the card (M in {1, 8}, L in {4096, 1048576,
      1237}, with reference code 4, coverage above the LUT cap and
      zero-count levels) and against the golden outputs of the JAX package
      (tests/data/); integers, masks and codes exact, clon within 1e-6,
-     clonR bit for bit. Then the three compaction (K4) kernels against
-     their plain versions, bit for bit (M in {1, 8, 33}, L in {1237,
-     4096, 1048576}, and M = 8 at L = 2502656), and against the JAX
+     clonR bit for bit; the site-stats kernel's pallas instance (--engine
+     pallas) against its plain version bit for bit at M = 8 over one
+     1 Mb chunk and over the batch chunk of 40 kb scaffolds, every output
+     but clon equal to the dense instance's. Then the three compaction
+     (K4) kernels against their plain versions, bit for bit (M in
+     {1, 8, 33}, L in {1237, 4096, 1048576}, and M = 8 at L = 2502656),
+     and against the JAX
      package's compaction golden file. Then the batch engine's form of
      clonR and K4 (K5: a chunk of scaffolds laid end to end, one segment
      each) against their plain versions at segments of unequal length, a
@@ -38,11 +43,14 @@ Phases (each prints its own lines; the first failure exits non-zero):
      against its plain group version and the host popcount, exact, at
      groups of one scaffold of (samples, mm levels, positions) up to
      (16, 4, 2^23) and (64, 3, 100000), groups of mixed N (1-64), Mg (1-5)
-     and L (1, 63, 64, 4099, 40000, one of 2^23 among short ones) and the
-     study's group of 128 x (8, 5, 40 kb); timed beside the bf16 product of
-     the unpacked bits at the study's group and the two large shapes; the
-     host popcount against the group launch with its copies over the
-     summed work n^2 * Mg * L that compare's auto engine reads.
+     and L (1, 63, 64, 4099, 40000, one of 2^23 among short ones), past 64
+     samples (65, 4, 40000), (128, 3, 100000) and a group of N 1-130, and
+     the study's group of 128 x (8, 5, 40 kb); timed beside the bf16
+     product of the unpacked bits at the study's group, the two large
+     shapes and the two past 64 samples, each bound by its bytes or its
+     bit-ANDs at the b1 rate k7_peak.cu measures; the host popcount
+     against the group launch with its copies over the summed work
+     n^2 * Mg * L that compare's auto engine reads (N up to 128).
      Kernel and plain times from CUDA events, each kernel's bound from its
      bytes and operations at the card's rates;
   4. end to end: `instrain_tpu_torch profile -g` through the CLI on a
@@ -76,9 +84,12 @@ Phases (each prints its own lines; the first failure exits non-zero):
      position chunk, the other kernels never; the reference's
      cross-engine tolerances against the batch and hybrid tables, the
      metagenome's with -g and gene_info, the rarefied columns of the
-     isolate apart); `profile_genes` with synth_genes' GenBank file over
-     the metagenome's profile (covT a pickle where h5py is missing): a
-     gene_info row for every gene, no failure; then compare: 8 samples of
+     isolate apart), then both through --engine pallas (launch counts
+     reset and read around each run: dense's; the TSVs equal dense's but
+     for clon's rounding, nucl_diversity* within 1e-6); `profile_genes`
+     with synth_genes' GenBank file over the metagenome's profile (covT
+     a pickle where h5py is missing): a gene_info row for every gene, no
+     failure; then compare: 8 samples of
      the metagenome (4 genomes, 10-40x, each BAM with its .bai: a ranged
      decode of half its scaffolds holds the full decode's records)
      profiled on the card with genome-wide aggregation, and compared
@@ -92,7 +103,10 @@ Phases (each prints its own lines; the first failure exits non-zero):
      (the pooling phase's seconds printed), and the device run drawing
      the dendrograms (where matplotlib imports; else the failure logged).
      The batch engine's profiled run also reports, per chunk, its H2D
-     bytes and time beside its kernels' (from the trace);
+     bytes and time beside its kernels' (from the trace). Then 66 tiny
+     samples (2 x 2 kb, 5-15x) profiled on the card and compared through
+     the overlap kernel (one launch, counted around the run) and the host
+     engine: the comparison table byte for byte;
   5. host commands: quick_profile (a coverm_raw.tsv row per scaffold),
      filter_reads (mapping_info.csv equal to the profile's) and other
      --run_statistics over the metagenome, and the rarefaction_curve
@@ -182,14 +196,33 @@ def phase_environment(torch):
 # ---------------------------------------------------------------- phase 2
 
 
+# k7_peak.cu's program, beside the kernels' library (not under WORK, which
+# the end-to-end phase clears)
+K7_PEAK = os.path.join(ROOT, "instrain_tpu_torch", "_build", "k7_peak")
+
+
 def phase_build():
+    """The kernels' library and the decoder, and beside them (one more
+    nvcc, started first) k7_peak.cu, whose b1 product rate bounds K7."""
     from instrain_tpu_torch import build
     from instrain_tpu_torch.kernels import cuda_sitestats as C
-    t0 = time.perf_counter()
-    kernels = build.cuda_kernels_library()
-    t1 = time.perf_counter()
-    io = build.native_io_library()
-    t2 = time.perf_counter()
+    os.makedirs(os.path.dirname(K7_PEAK), exist_ok=True)
+    peak = subprocess.Popen(
+        [build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+         "-o", K7_PEAK, os.path.join(ROOT, "k7_peak.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        kernels = build.cuda_kernels_library()
+        t1 = time.perf_counter()
+        io = build.native_io_library()
+        t2 = time.perf_counter()
+        peak_out = peak.communicate(timeout=600)[0]
+    finally:
+        if peak.poll() is None:
+            peak.kill()
+            peak.wait()
+    check(peak.returncode == 0, f"k7_peak.cu did not build: {peak_out}")
     log("build", f"CUDA kernels {os.path.basename(kernels)}: "
                  f"{t1 - t0:.2f} s")
     for line in build.build_log(kernels).splitlines():
@@ -197,6 +230,23 @@ def phase_build():
             log("build", "ptxas: " + line.strip())
     log("build", f"native decoder {os.path.basename(io)}: {t2 - t1:.2f} s")
     C.load_kernels()
+
+
+def b1_rate():
+    """Bit-ANDs with popcount a second of the b1 tensor-core product
+    (mma.sync m16n8k256 and.popc) on this card, the larger of k7_peak's
+    two runs, after its fragment layout check."""
+    res = subprocess.run([K7_PEAK], capture_output=True, text=True,
+                         timeout=120)
+    check(res.returncode == 0 and "0 of 128 wrong" in res.stdout,
+          f"k7_peak failed: {res.stdout} {res.stderr}")
+    rates = [float(line.split(",")[-1].split()[0])
+             for line in res.stdout.splitlines()
+             if line.startswith("mma b1 m16n8k256:")]
+    check(len(rates) == 2, f"k7_peak printed {res.stdout}")
+    for line in res.stdout.splitlines():
+        log("peak", line)
+    return max(rates)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -372,6 +422,32 @@ def phase_kernels(torch, card):
                            f"abs err {e1:.3g}), clonR == plain bitwise "
                            f"({n_set} drawn cells)")
 
+    # --engine pallas: the kernel's kPallasOrder instance against its
+    # plain version, bit for bit, at a 1 Mb chunk of the dense engine and
+    # at the batch engine's chunk shape (40 kb scaffolds end to end)
+    from instrain_tpu_torch.profile.compact import CHUNK_CELLS
+    n_chunk = CHUNK_CELLS // (8 * 40_000)
+    for M, lengths in ((8, [1 << 20]), (8, [40_000] * n_chunk)):
+        counts, ref = segment_inputs(M, lengths, 11)
+        c = torch.from_numpy(counts).to(dev)
+        r = torch.from_numpy(ref).to(dev)
+        got = C.site_stats_core(c, r, nl, fl, 5, 50, pallas=True)
+        want = C.site_stats_core_plain(c, r, nl, fl, 5, 50, pallas=True)
+        dense = C.site_stats_core(c, r, nl, fl, 5, 50)
+        torch.cuda.synchronize()
+        what = f"site_stats (pallas) M={M} {len(lengths)} x {lengths[0]}"
+        compare_exact(want, got, what)
+        differ = int((_bits(dense["clon"]) != _bits(got["clon"])).sum())
+        same = all(torch.equal(_bits(dense[k]), _bits(got[k]))
+                   for k in got if k != "clon")
+        check(same, f"{what}: an output other than clon differs from the "
+                    f"dense instance")
+        log("kernels", f"{what}: == plain pallas variant bit for bit; clon "
+                       f"differs from the dense instance's at {differ} of "
+                       f"{got['clon'].numel()} cells, every other output "
+                       f"equal")
+        del c, got, want, dense
+
     golden = os.path.join(ROOT, "tests", "data",
                           "torch_sitestats_golden.npz")
     with np.load(golden) as z:
@@ -408,9 +484,15 @@ def phase_kernels(torch, card):
             c, r, nl, fl, 5, 50), 20, 3)
         t_clonr = timed_pair(torch, lambda: C.clonR(*args),
                              lambda: C.clonR_plain(*args), 20, 3)
-        times[(M, L)] = {"site_stats": t_core, "clonR": t_clonr}
+        t_pallas = timed_pair(torch, lambda: C.site_stats_core(
+            c, r, nl, fl, 5, 50, pallas=True), lambda: C.site_stats_core_plain(
+            c, r, nl, fl, 5, 50, pallas=True), 20, 3)
+        times[(M, L)] = {"site_stats": t_core, "clonR": t_clonr,
+                         "site_stats_pallas": t_pallas}
         log("kernels", f"time M={M} L={L} on {card}: site_stats kernel "
-                       f"{t_core[0]:.4f} ms vs plain {t_core[1]:.4f} ms; "
+                       f"{t_core[0]:.4f} ms vs plain {t_core[1]:.4f} ms "
+                       f"(pallas instance {t_pallas[0]:.4f} ms vs plain "
+                       f"{t_pallas[1]:.4f} ms); "
                        f"clonR kernel {t_clonr[0]:.4f} ms vs plain "
                        f"{t_clonr[1]:.4f} ms "
                        f"({int(core['clonR_set'].sum())} drawn cells)")
@@ -1303,6 +1385,37 @@ def compare_tables(a_dir, b_dir, skip=(), tables=TABLES):
     return diffs
 
 
+def same_but_rounding(a_dir, b_dir, tables):
+    """Tables of two runs whose clon differs only in its rounding (--engine
+    pallas against dense): equal text, but for nucl_diversity* columns,
+    whose values may differ by at most 1e-6. Returns {table: [columns
+    that differ]}."""
+    import numpy as np
+    import pandas as pd
+    differ = {}
+    for t in tables:
+        path_a, path_b = (os.path.join(d, "output",
+                                       f"{os.path.basename(d)}_{t}.tsv")
+                          for d in (a_dir, b_dir))
+        a, b = (pd.read_csv(p, sep="\t", dtype=str, keep_default_na=False,
+                            header=1 if t == "mapping_info" else 0)
+                for p in (path_a, path_b))
+        check(list(a.columns) == list(b.columns) and len(a) == len(b),
+              f"{t}: shapes differ between the runs")
+        cols = [c for c in a.columns if not a[c].equals(b[c])]
+        for c in cols:
+            check(c.startswith("nucl_diversity"),
+                  f"{t}/{c}: differs beyond clon's rounding")
+            va, vb = (pd.to_numeric(x[c].replace("", "nan")).to_numpy(float)
+                      for x in (a, b))
+            check(np.array_equal(np.isnan(va), np.isnan(vb)) and
+                  np.nanmax(np.abs(va - vb), initial=0.0) <= 1e-6,
+                  f"{t}/{c}: differs by more than 1e-6")
+        if cols:
+            differ[t] = cols
+    return differ
+
+
 def tsvs(out, tables=TABLES):
     texts = {}
     for t in tables:
@@ -1772,6 +1885,35 @@ def phase_end_to_end(torch):
                "hybrid engine (max abs difference " + ", ".join(
                    f"{k} {v:.3g}" for k, v in diffs.items()) + ")")
 
+    # --engine pallas: the dense engine with clon rounded as the JAX
+    # package's Pallas core rounds it (site_stats' kPallasOrder instance),
+    # every launch count reset just before each run and read just after:
+    # the dense engine's launches, and its TSVs apart from clon's rounding
+    for name, S, L, _ in cases[:2]:
+        C.reset_launch_counts()
+        CC.reset_launch_counts()
+        CL.reset_launch_counts()
+        genes = meta_genes if name == "metagenome" else None
+        pallas = run(name, "pallas", genes=genes)
+        got = {**C.launch_counts(), **CC.launch_counts(),
+               **CL.launch_counts()}
+        chunks = S * -(-L // (1 << 20))
+        for k, n in got.items():
+            want = chunks if k in ("site_stats", "clonR") else 0
+            check(n == want, f"{name} --engine pallas: kernel {k} launched "
+                             f"{n} times, expected {want}")
+        tables = GENE_TABLES if genes else TABLES
+        differ = same_but_rounding(dense[name], pallas, tables)
+        wall_d, wall_p = timings[dense[name]][0], timings[pallas][0]
+        log("e2e", f"{name} --engine pallas{' -g' if genes else ''}: "
+                   f"launches {got} ({chunks} scaffold chunks, as dense); "
+                   f"wall {wall_p:.2f} s against dense's {wall_d:.2f} s; "
+                   f"TSVs against --engine dense: " + (
+                       "byte for byte" if not differ else
+                       "equal but for " + ", ".join(
+                           f"{t} {cols}" for t, cols in differ.items()) +
+                       " within 1e-6"))
+
     # profile_genes with the GenBank file over the card's profile of the
     # metagenome, whose covT is stored as a pickle where h5py is missing
     covt = ProfileDir(outs["metagenome"])._get_attributes().loc[
@@ -1960,33 +2102,49 @@ K7_GROUPS = [
      (8, 4, 1), (17, 5, 63), (2, 2, 40_000), (1, 3, 4099), (64, 1, 64)],
     [(2, 1, 63), (8, 5, 4099), (16, 4, 1 << 23), (17, 2, 1), (64, 3, 64),
      (1, 5, 40_000)],
+    # past 64 samples: tiles of 64 samples, a CUDA block per tile pair
+    [(65, 4, 40_000)], [(128, 3, 100_000)],
+    [(8, 5, 4099), (65, 2, 63), (130, 3, 40_000), (1, 1, 1)],
 ]
 STUDY_GROUP = [(8, 5, 40_000)] * 128     # the study's one group
+# the groups phase_compare_kernel times
+K7_TIMED = ([(16, 4, 1 << 23)], [(64, 3, 100_000)], [(65, 4, 40_000)],
+            [(128, 3, 100_000)], STUDY_GROUP)
 
 
-def overlap_bound(words, plan):
+def overlap_bound(words, plan, rate=None, shapes=None):
     """K7's bound: the group's words read once and its counts written
-    once. Its operations run on the tensor cores' binary product, whose
-    rate no data sheet in use here gives; k7_peak.cu measures it far above
-    what the bytes feed it."""
-    return bound(sum(w.nbytes for w in words) + 8 * plan.n_out)
+    once, or, given the b1 tensor-core product's `rate` (b1_rate) and the
+    group's (N, Mg, L) `shapes`, its N(N+1)/2 * Mg * L bit-ANDs with
+    popcount at that rate, whichever takes longer."""
+    n_bytes = sum(w.nbytes for w in words) + 8 * plan.n_out
+    if rate is None:
+        return bound(n_bytes)
+    ops = sum(n * (n + 1) // 2 * mg * L for n, mg, L in shapes)
+    return bound(n_bytes, ops, rate)
 
 
 def phase_compare_kernel(torch, card):
     """The group overlap kernel (K7) against its plain version and the host
     popcount, exact, one launch per group: single scaffolds up to
     (16, 4, 2^23) and (64, 3, 100,000), groups of mixed N (1-64), Mg (1-5)
-    and L (1, 63, 64, 4099, 40,000, one of 2^23 among short ones), and the
-    study's group of 128 x (8, 5, 40 kb); then timed in turns with the
+    and L (1, 63, 64, 4099, 40,000, one of 2^23 among short ones), past 64
+    samples (65, 4, 40,000), (128, 3, 100,000) and a group of N 1-130, and
+    the study's group of 128 x (8, 5, 40 kb); then timed in turns with the
     plain version and the bf16 product of the unpacked bits (the JAX
     package's method, the yardstick) at the study's group and at
-    (16, 4, 2^23) and (64, 3, 100,000)."""
+    (16, 4, 2^23), (64, 3, 100,000), (65, 4, 40,000) and (128, 3,
+    100,000), each beside its bound at the b1 product's rate that
+    k7_peak.cu measures on this card."""
     import numpy as np
     from instrain_tpu_torch.kernels import compare as K
     from instrain_tpu_torch.kernels import cuda_compare as CC
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
+    rate = b1_rate()
+    log("compare", f"b1 product on {card}: {rate:.4g} bit-ANDs with "
+                   f"popcount a second (k7_peak.cu)")
     times = {}
     for shapes in K7_GROUPS + [STUDY_GROUP]:
         words = group_words(rng, shapes)
@@ -2010,8 +2168,7 @@ def phase_compare_kernel(torch, card):
                        f"plain group version and == host popcount per "
                        f"scaffold, exact (diagonal sum "
                        f"{int(sum(sg.sum() for _, sg in counts))})")
-        if shapes not in ([(16, 4, 1 << 23)], [(64, 3, 100_000)],
-                          STUDY_GROUP):
+        if shapes not in K7_TIMED:
             continue
         # the yardstick: bits unpacked to bf16 [sum Mg, N, L] once,
         # outside the timing, then one batched product with f32 results
@@ -2038,7 +2195,7 @@ def phase_compare_kernel(torch, card):
         dev_ms = cold_ms(torch, lambda: CC.overlap_counts_group(dbuf, plan),
                          20, busy=True)
         l2 = cuda_ms(torch, library, 10)
-        b_ms, b_by = overlap_bound(words, plan)
+        b_ms, b_by = overlap_bound(words, plan, rate, shapes)
         key = "study" if shapes is STUDY_GROUP else shapes[0]
         times[key] = dict(ms=k_ms, plain_ms=p_ms, device_ms=dev_ms,
                           library_ms=(l1 + l2) / 2, bound_ms=b_ms,
@@ -2063,8 +2220,8 @@ def phase_compare_crossover(torch, card):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    rows = []
-    for N, G in ((8, 1), (8, 16), (32, 4)):
+    rows, past64 = [], []
+    for N, G in ((8, 1), (8, 16), (32, 4), (65, 1), (128, 1)):
         for L in (1 << k for k in range(6, 19, 2)):
             words = group_words(rng, [(N, 4, L)] * G)
             lengths = [L] * G
@@ -2085,6 +2242,8 @@ def phase_compare_crossover(torch, card):
             host, device = min(ms["host"]), min(ms["device"])
             work = G * N * N * 4 * L
             rows.append((work, host, device))
+            if N > 64:
+                past64.append(rows[-1])
             log("compare", f"crossover, group of {G} x (N={N}, Mg=4, L={L})"
                            f" (sum n^2*Mg*L = {work:.4g}) on {card}: host "
                            f"{host:.4f} ms, one launch with its copies "
@@ -2098,6 +2257,11 @@ def phase_compare_crossover(torch, card):
     log("compare", f"the group launch with its copies is faster than the "
                    f"host popcount at every swept work from {from_on} on; "
                    f"the auto bound is {CP.DEVICE_MIN_WORK}")
+    lost = [w for w, h, d in past64 if d >= h]
+    log("compare", f"past 64 samples (N = 65 and 128, works from "
+                   f"{min(w for w, _, _ in past64)} on) the launch with its "
+                   f"copies is slower than the host popcount at "
+                   f"{len(lost)} of {len(past64)} swept works {lost}")
     return rows
 
 
@@ -2347,6 +2511,64 @@ def phase_compare_e2e(torch):
                f"byte-identical to it; strain clusters per genome "
                f"{per_genome}")
     return got["overlap_counts"]
+
+
+def phase_compare_past64(torch):
+    """compare past 64 samples: 66 tiny samples (2 scaffolds of 2 kb,
+    5-15x) profiled on the card, then compared on the card through the
+    overlap kernel (--engine device: one comparison group, so one launch,
+    its scaffolds 66 samples of two sample tiles each; the launch count
+    reset just before and read just after) and with the host engine; the
+    comparison table byte for byte, a row per (scaffold, pair, mm level)
+    at least."""
+    from instrain_tpu_torch.cli import main
+    from instrain_tpu_torch.kernels import cuda_compare as CC
+    from instrain_tpu_torch.synth import synth_samples
+
+    n = 66
+    d = os.path.join(WORK, "compare66")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    fasta, bams, _ = synth_samples(d, n, 2, 2000,
+                                   [5 + i % 11 for i in range(n)], seed=11)
+    profiles = []
+    for i, bam in enumerate(bams):
+        profiles.append(os.path.join(d, f"s{i}.IS"))
+        check(main(["profile", bam, fasta, "-o", profiles[-1], "--device",
+                    "cuda", "--skip_genome_wide",
+                    "--skip_plot_generation"]) == 0,
+              f"profile of sample {i} of {n} failed")
+    log("e2e", f"{n} tiny samples (2 x 2 kb, 5-15x) made and profiled on "
+               f"the card: {time.perf_counter() - t0:.2f} s")
+    texts, walls = {}, {}
+    for engine in ("device", "host"):
+        out = os.path.join(d, f"{engine}.RC")
+        CC.reset_launch_counts()
+        t0 = time.perf_counter()
+        check(main(["compare", "-i"] + profiles + [
+            "-o", out, "--device", "cuda", "--engine", engine,
+            "--skip_plot_generation"]) == 0, f"compare {engine} of {n} "
+                                             f"samples failed")
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        got = CC.launch_counts()["overlap_counts"]
+        want = 1 if engine == "device" else 0
+        check(got == want, f"compare --engine {engine} of {n} samples: "
+                           f"{got} overlap_counts launches, expected {want}")
+        with open(os.path.join(out, "output",
+                               f"{engine}.RC_comparisonsTable.tsv")) as f:
+            texts[engine] = f.read()
+    rows = texts["device"].count("\n") - 1
+    check(texts["device"] == texts["host"],
+          f"compare of {n} samples: --engine device's comparisonsTable "
+          f"differs from --engine host's")
+    check(rows >= 2 * n * (n - 1) // 2,
+          f"compare of {n} samples: {rows} comparison rows")
+    log("e2e", f"compare of {n} samples on {nvidia_smi_line()}: --engine "
+               f"device (one overlap_counts launch) wall "
+               f"{walls['device']:.2f} s, --engine host "
+               f"{walls['host']:.2f} s; comparisonsTable ({rows} rows) "
+               f"byte for byte")
 
 
 # ---------------------------------------------------------------- mesh
@@ -2622,7 +2844,7 @@ def main():
     phase_check_deps(torch)
     from instrain_tpu_torch.kernels import cuda_compact as CC
     short_keys = CC.MEDIAN_SHORT_KEYS
-    errs, _ = phase_kernels(torch, card)
+    errs, at_1mb = phase_kernels(torch, card)
     errs.update(phase_compact(torch, card))
     berrs, times, bounds = phase_batch(torch, card)
     errs = {k: max(v, berrs.get(k, 0.0)) for k, v in errs.items()}
@@ -2634,6 +2856,7 @@ def main():
     phase_compare_crossover(torch, card)
     launches, ld_args, captured, paths = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
+    phase_compare_past64(torch)
     phase_host_commands(torch, paths)
     mesh_err, clonr_base = phase_mesh(torch, paths)
     errs["clonR"] = max(errs["clonR"], mesh_err)
@@ -2676,7 +2899,13 @@ def main():
          "replaces": "instrain_tpu/kernels/pallas_sitestats.py:247",
          "launches": launches["site_stats"],
          "max_abs_err": errs["site_stats"],
-         "ms": times["site_stats"][0], "plain_ms": times["site_stats"][1]},
+         "ms": times["site_stats"][0], "plain_ms": times["site_stats"][1],
+         # --engine pallas' instance (kPallasOrder) and the dense one at
+         # one 1 Mb chunk of 8 mm levels
+         "pallas_at": "M=8 L=1048576",
+         "pallas_ms": at_1mb["site_stats_pallas"][0],
+         "pallas_plain_ms": at_1mb["site_stats_pallas"][1],
+         "dense_at_pallas_shape_ms": at_1mb["site_stats"][0]},
         {"name": "clonR", "route": "cuda",
          "source": "instrain_tpu_torch/csrc/clonr.cu",
          "replaces": "instrain_tpu/kernels/sitestats.py:136",
@@ -2722,7 +2951,10 @@ def main():
          "replaces": "instrain_tpu/kernels/compare.py:39",
          "launches": launches["overlap_counts"], "max_abs_err": 0.0,
          **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}})
+                                       "bound_by", "library_ms")},
+         # past 64 samples: a CUDA block per tile pair of 64 samples
+         "past_64": {str(s): k7[s] for s in ((65, 4, 40_000),
+                                             (128, 3, 100_000))}})
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

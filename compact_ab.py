@@ -12,11 +12,13 @@ each design called through its own wrappers.
 DIR is the earlier commit's package: it is loaded beside this checkout's
 as the package `instrain_earlier` (its modules import one another
 relatively) and builds its own kernels into its own _build/. PARTs (all
-by default): peak, overlap, compact, ld. The overlap part needs an
+by default): peak, overlap, group, compact, ld. The overlap part needs an
 earlier package with the per-scaffold K7 entry (60a2909's, the design
-the group launch replaced); ld takes a1862b1's (the design before the
-one-launch ld). Keep DIR out of .smoke/ where chip_smoke.py runs after
-it: the smoke clears .smoke/.
+the group launch replaced); group one with the group launch
+(overlap_counts_group: 8e387e8's, the design before the sample tiles,
+whose blocks it runs the same at up to 64 samples); ld takes a1862b1's
+(the design before the one-launch ld). Keep DIR out of .smoke/ where
+chip_smoke.py runs after it: the smoke clears .smoke/.
 
 compact: the compaction kernels at the shapes chip_smoke.py times them at:
 the inputs compact_from_full gets in the three --engine auto runs of its
@@ -263,6 +265,62 @@ def ab_overlap(torch, ecmp, card):
     return res
 
 
+def ab_group(torch, ecmp, card):
+    """K7's group launch of both designs, each through its own group plan,
+    buffer and wrapper (an earlier package with overlap_counts_group, such
+    as 8e387e8's, the design before the sample tiles): at the study's
+    group and at (64, 3, 100,000), where both run one tile pair a block,
+    the counts equal bit for bit, then the device time and the wrapper's
+    time in turns (earlier, this, this, earlier, earlier, this), each
+    reading kept so that a difference can be set against each design's
+    own spread."""
+    import numpy as np
+    from instrain_tpu_torch.kernels import compare as K
+    from instrain_tpu_torch.kernels import cuda_compare as CC
+    ek = sys.modules["instrain_earlier.kernels.compare"]
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(29)
+    res = {}
+    for shapes in (smoke.STUDY_GROUP, [(64, 3, 100_000)]):
+        words = smoke.group_words(rng, shapes)
+        plans = {"this": K.group_plan([w.shape for w in words], sms),
+                 "earlier": ek.group_plan([w.shape for w in words], sms)}
+        smoke.check(plans["this"].n_blocks == plans["earlier"].n_blocks,
+                    f"K7 {shapes[0]}: the designs launch "
+                    f"{plans['this'].n_blocks} and "
+                    f"{plans['earlier'].n_blocks} blocks")
+        bufs = {"this": torch.from_numpy(K.group_buffer(
+                    words, plans["this"])).to(dev),
+                "earlier": torch.from_numpy(ek.group_buffer(
+                    words, plans["earlier"])).to(dev)}
+        calls = {"this": lambda: CC.overlap_counts_group(bufs["this"],
+                                                         plans["this"]),
+                 "earlier": lambda: ecmp.overlap_counts_group(
+                     bufs["earlier"], plans["earlier"])}
+        smoke.check(torch.equal(calls["this"](), calls["earlier"]()),
+                    f"K7 {shapes[0]}: the designs' counts differ")
+        r = {}
+        for kind, busy in (("device", True), ("wrapper", False)):
+            reads = {}
+            for d in ("earlier", "this", "this", "earlier", "earlier",
+                      "this"):
+                reads.setdefault(d, []).append(
+                    smoke.cold_ms(torch, calls[d], N, busy=busy))
+            r[kind] = reads
+        key = "study group" if shapes is smoke.STUDY_GROUP else \
+            str(shapes[0])
+        res[key] = r
+        text = "; ".join(
+            f"{kind}: this " + ", ".join(f"{x:.4f}" for x in v["this"]) +
+            " ms, earlier " + ", ".join(f"{x:.4f}" for x in v["earlier"]) +
+            " ms" for kind, v in r.items())
+        smoke.log("ab", f"K7 group launch at {key} ({len(shapes)} x "
+                        f"{shapes[0]}, {plans['this'].n_blocks} blocks) on "
+                        f"{card}, cold L2, counts equal: {text}")
+    return res
+
+
 def host_ms(torch, fn, n):
     """Mean ms of fn over n calls by the host's clock, each call ended by
     torch.cuda.synchronize()."""
@@ -392,7 +450,7 @@ def peak_rates():
     return res.stdout
 
 
-PARTS = ("peak", "overlap", "compact", "ld")
+PARTS = ("peak", "overlap", "group", "compact", "ld")
 
 
 def main():
@@ -416,6 +474,8 @@ def main():
             results["peak"] = peak_rates()
         if "overlap" in parts:
             results["overlap_counts"] = ab_overlap(torch, ecmp, card)
+        if "group" in parts:
+            results["overlap_counts_group"] = ab_group(torch, ecmp, card)
         if "compact" in parts or "ld" in parts:
             # the deep input alone when only ld is asked for
             captured, deep_call, deep_args = captured_shapes(

@@ -105,10 +105,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "device compaction, so only table-ready outputs "
                         "come back; a scaffold whose padded M x L exceeds "
                         "2^27 cells runs dense), batch (hybrid over chunks "
-                        "of many scaffolds per launch), or auto: on "
-                        "--device cuda batch from 16 kept scaffolds on and "
-                        "hybrid below, dense on --device cpu (pallas is "
-                        "not ported: use dense)")
+                        "of many scaffolds per launch), pallas (the "
+                        "dense engine with clonality rounded as the JAX "
+                        "package's Pallas core rounds it; hybrid under a "
+                        "mesh), or auto: on --device cuda batch from 16 "
+                        "kept scaffolds on and hybrid below, dense on "
+                        "--device cpu")
     g.add_argument("--mesh_devices", default=0, type=int,
                    help="shard the profile kernels over N cards of a 1-D "
                         "mesh (hybrid: each scaffold's positions; batch: "

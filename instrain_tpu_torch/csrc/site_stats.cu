@@ -32,7 +32,13 @@
 // fma(p1, p1, p0 * p0))) written with the explicit intrinsics
 // __fmaf_rn / __fmul_rn, never left to nvcc's contraction: that chain is
 // what XLA's CPU backend computes for the JAX function's reduce of
-// squares, so clon is bit-identical to the reference.
+// squares, so clon is bit-identical to the reference. `--engine pallas`
+// runs the kPallasOrder instance: the JAX package's Pallas core sums the
+// squares left to right, ((p0^2 + p1^2) + p2^2) + p3^2 (:_kernel, :95-100),
+// which XLA's CPU backend contracts, in interpret mode, into fma(p3, p3,
+// fma(p2, p2, fma(p0, p0, p1 * p1))): only the innermost step differs,
+// and with it clon's last bit at some cells; every other output is the
+// same in both instances.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +57,7 @@ __device__ __forceinline__ int first_max4(int a, int c, int t, int g) {
     return 3;
 }
 
+template <bool kPallasOrder>
 __global__ void site_stats_kernel(
         const int32_t* __restrict__ counts, const uint8_t* __restrict__ ref,
         const int32_t* __restrict__ null_lut,
@@ -131,8 +138,10 @@ __global__ void site_stats_kernel(
             const float p1 = __fdiv_rn((float)c, denom);
             const float p2 = __fdiv_rn((float)t, denom);
             const float p3 = __fdiv_rn((float)g, denom);
-            clon = __fmaf_rn(p3, p3, __fmaf_rn(p2, p2, __fmaf_rn(
-                       p1, p1, __fmul_rn(p0, p0))));
+            const float inner =
+                kPallasOrder ? __fmaf_rn(p0, p0, __fmul_rn(p1, p1))
+                             : __fmaf_rn(p1, p1, __fmul_rn(p0, p0));
+            clon = __fmaf_rn(p3, p3, __fmaf_rn(p2, p2, inner));
         }
 
         // cryptic-SNV state machine (sitestats.py:273-288)
@@ -168,14 +177,15 @@ __global__ void site_stats_kernel(
 extern "C" int instrain_site_stats(
         const void* counts, const void* ref, const void* null_lut,
         const void* freq_lut, int maxcov, int M, int64_t L, int min_cov,
-        int min_covR, void* cum, void* present, void* total, void* morphia,
-        void* con, void* var, void* call, void* row, void* cls, void* clon,
-        void* ref_count, void* clonR_set, void* cryptic, void* any_snp,
-        void* bases_mask, void* stream) {
+        int min_covR, int pallas_order, void* cum, void* present,
+        void* total, void* morphia, void* con, void* var, void* call,
+        void* row, void* cls, void* clon, void* ref_count, void* clonR_set,
+        void* cryptic, void* any_snp, void* bases_mask, void* stream) {
     const int threads = 256;
     const int64_t blocks = (L + threads - 1) / threads;
-    site_stats_kernel<<<(unsigned)blocks, threads, 0,
-                        (cudaStream_t)stream>>>(
+    auto kernel = pallas_order ? site_stats_kernel<true>
+                               : site_stats_kernel<false>;
+    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)counts, (const uint8_t*)ref,
         (const int32_t*)null_lut, (const int32_t*)freq_lut, maxcov, M, L,
         min_cov, min_covR, (int32_t*)cum, (bool*)present, (int64_t*)total,

@@ -21,7 +21,8 @@ and with no bound on L.
                                popcount table
   group_plan, group_buffer     a comparison group's scaffolds in one
                                buffer for one launch: the group table
-                               (csrc/compare.cu) and the words
+                               (csrc/compare.cu), its sample tiles and
+                               tile pairs, and the words
   overlap_counts_group_plain   the plain version of the group kernel: a
                                loop of overlap_counts_plain over the table
   split_counts                 the group's counts, scaffold by scaffold
@@ -107,14 +108,19 @@ def overlap_counts_plain(words: torch.Tensor
 # A comparison group in one launch (csrc/compare.cu): per scaffold s,
 # words [N_s, Mg_s, W_s] end to end after the group table; its counts
 # both [Mg_s, N_s, N_s] then single [Mg_s, N_s] end to end in one int64
-# output. Each (scaffold, mm level) row is cut into blocks of `chunk`
-# words, chunk set per scaffold for about the same bytes a block (the
-# kernel is bound by its reads), so that the group gives every SM
+# output. The sample axis is cut into tiles of GROUP_TILE samples: a
+# scaffold of N samples has T = ceil(N / GROUP_TILE) tiles and T(T + 1) / 2
+# tile pairs (bi <= bj), one for N <= 64. Each (scaffold, mm level) row
+# is cut into blocks of `chunk` words, and each block of words into one
+# CUDA block per tile pair. The chunk is set per scaffold for about the
+# same bytes a block (the kernel is bound by its reads): a tile pair reads
+# 2N / (T + 1) samples' words on average, so that the group gives every SM
 # GROUP_BLOCKS_PER_SM blocks; chunk is a multiple of GROUP_MIN_CHUNK, and
 # a block's 32-bit sums bound it by GROUP_MAX_CHUNK (2^24 words hold 2^30
 # positions).
 
-GROUP_FIELDS = 7           # N, Mg, W, chunk, word off, out off, block0
+GROUP_FIELDS = 8   # N, Mg, W, chunk, word off, out off, block0, tile pairs
+GROUP_TILE = 64
 GROUP_MIN_CHUNK = 32
 GROUP_MAX_CHUNK = 1 << 24
 GROUP_BLOCKS_PER_SM = 4
@@ -131,22 +137,47 @@ class GroupPlan(NamedTuple):
     n_blocks: int
 
 
+def tile_pairs(n: int) -> int:
+    """The (bi <= bj) pairs of the GROUP_TILE-sample tiles of n samples."""
+    t = -(-n // GROUP_TILE)
+    return t * (t + 1) // 2
+
+
+def tile_pair(n: int, p: int) -> Tuple[int, int]:
+    """Tile pair p of n samples as csrc/compare.cu:block_row numbers them:
+    (0, 0), (0, 1), ..., (0, T - 1), (1, 1), ..."""
+    t = -(-n // GROUP_TILE)
+    bi = 0
+    while p >= t - bi:
+        p -= t - bi
+        bi += 1
+    return bi, bi + p
+
+
 def group_plan(shapes: Sequence[Tuple[int, int, int]],
                sms: int = 132) -> GroupPlan:
     """The group table of scaffolds of (N, Mg, W), each >= 1, for a card
     of `sms` SMs (plain Python: it runs before every launch)."""
     shapes = tuple((int(n), int(mg), int(w)) for n, mg, w in shapes)
     assert shapes and all(min(x) >= 1 for x in shapes), shapes
-    total = sum(n * mg * w for n, mg, w in shapes)
+    tiles = [-(-n // GROUP_TILE) for n, _, _ in shapes]
+    # the words the blocks read: a sample's words once per tile pair of
+    # its tile, T times
+    total = sum(n * mg * w * t for (n, mg, w), t in zip(shapes, tiles))
     per_block = -(-total // (sms * GROUP_BLOCKS_PER_SM))
     t = np.zeros((GROUP_FIELDS, len(shapes) + 1), np.int64)
-    for s, (n, mg, w) in enumerate(shapes):
-        chunk = -(-per_block // n // GROUP_MIN_CHUNK) * GROUP_MIN_CHUNK
+    for s, ((n, mg, w), nt) in enumerate(zip(shapes, tiles)):
+        chunk = (-(-(per_block * (nt + 1)) // (2 * n) // GROUP_MIN_CHUNK) *
+                 GROUP_MIN_CHUNK)
         chunk = min(max(chunk, GROUP_MIN_CHUNK), GROUP_MAX_CHUNK, w)
+        # a block's per-pair sums are 32-bit: at most 64 * chunk bits
+        assert 64 * chunk < 2 ** 31, chunk
+        pairs = tile_pairs(n)
         t[:4, s] = n, mg, w, chunk
+        t[7, s] = pairs
         t[4, s + 1] = t[4, s] + n * mg * w
         t[5, s + 1] = t[5, s] + mg * n * (n + 1)
-        t[6, s + 1] = t[6, s] + mg * -(-w // chunk)
+        t[6, s + 1] = t[6, s] + mg * -(-w // chunk) * pairs
     return GroupPlan(shapes, t, int(t[4, -1]), int(t[5, -1]),
                      int(t[6, -1]))
 

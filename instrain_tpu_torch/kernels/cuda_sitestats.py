@@ -64,7 +64,7 @@ def _load():
             U64 = ct.c_uint64
             lib.instrain_site_stats.restype = I
             lib.instrain_site_stats.argtypes = (
-                [P, P, P, P, I, I, I64, I, I] + [P] * 15 + [P])
+                [P, P, P, P, I, I, I64, I, I, I] + [P] * 15 + [P])
             lib.instrain_clonr.restype = I
             lib.instrain_clonr.argtypes = [P, P, P, I, I64, P, I, I64, U64,
                                            I64, U32, I, P, P]
@@ -105,13 +105,14 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def site_stats_core_plain(counts, ref_codes, null_lut, freq_lut,
-                          min_cov: int = 5, min_covR: int = 50
-                          ) -> Dict[str, torch.Tensor]:
+                          min_cov: int = 5, min_covR: int = 50,
+                          pallas: bool = False) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the site_stats kernel: every output of
-    sitestats.site_stats except clonR."""
+    sitestats.site_stats except clonR (clon rounded as the Pallas core
+    rounds it where `pallas`)."""
     return plain.site_stats(counts, ref_codes, null_lut, freq_lut,
                             (0, 0), min_cov=min_cov, min_covR=min_covR,
-                            with_clonR=False)
+                            with_clonR=False, pallas=pallas)
 
 
 def clonR_plain(cum, total, clonR_set, seg: plain.Segments,
@@ -126,16 +127,19 @@ def clonR_plain(cum, total, clonR_set, seg: plain.Segments,
 
 
 def site_stats_core(counts, ref_codes, null_lut, freq_lut,
-                    min_cov: int = 5, min_covR: int = 50
-                    ) -> Dict[str, torch.Tensor]:
+                    min_cov: int = 5, min_covR: int = 50,
+                    pallas: bool = False) -> Dict[str, torch.Tensor]:
     """Per-cell site statistics (all of site_stats but clonR).
 
     counts int32 [M, 4, L], ref_codes uint8 [L], LUTs int32 [maxcov+1];
-    all contiguous, on one device."""
+    all contiguous, on one device. `pallas` rounds clon as the JAX
+    package's Pallas core does (`--engine pallas`; the kernel's
+    kPallasOrder instance)."""
     name = "site_stats"
     if counts.device.type == "cpu":
         return site_stats_core_plain(counts, ref_codes, null_lut, freq_lut,
-                                     min_cov=min_cov, min_covR=min_covR)
+                                     min_cov=min_cov, min_covR=min_covR,
+                                     pallas=pallas)
     _require(counts.device.type == "cuda", name,
              f"unsupported device {counts.device}")
     _require(counts.dim() == 3 and counts.shape[1] == 4, name,
@@ -159,7 +163,8 @@ def site_stats_core(counts, ref_codes, null_lut, freq_lut,
         rc = lib.instrain_site_stats(
             counts.data_ptr(), ref_codes.data_ptr(), null_lut.data_ptr(),
             freq_lut.data_ptr(), null_lut.shape[0] - 1, M, L, min_cov,
-            min_covR, *[out[k].data_ptr() for k, _, _ in _CORE_OUTPUTS],
+            min_covR, int(pallas),
+            *[out[k].data_ptr() for k, _, _ in _CORE_OUTPUTS],
             _stream(counts))
     _check(rc, name)
     site_stats_core.launches += 1
@@ -238,11 +243,12 @@ def launch_counts() -> Dict[str, int]:
 
 def site_stats(counts, ref_codes, null_lut, freq_lut, seg: plain.Segments,
                min_cov: int = 5, min_covR: int = 50,
-               rarefied_draws: int = 50, m_stride: Optional[int] = None
-               ) -> Dict[str, torch.Tensor]:
+               rarefied_draws: int = 50, m_stride: Optional[int] = None,
+               pallas: bool = False) -> Dict[str, torch.Tensor]:
     """sitestats.site_stats through the two kernels (same output dict), of
     the chunk of scaffolds `seg` lays end to end (one scaffold under a
-    key: single_segment(L, key, device)). Inputs are cast to the kernels'
+    key: single_segment(L, key, device)); `pallas`: clon as the JAX
+    package's Pallas core rounds it. Inputs are cast to the kernels'
     dtypes; the LUTs and ref codes move to the counts' device."""
     dev = counts.device
     counts = counts.to(torch.int32).contiguous()
@@ -250,7 +256,7 @@ def site_stats(counts, ref_codes, null_lut, freq_lut, seg: plain.Segments,
     null_lut = null_lut.to(device=dev, dtype=torch.int32).contiguous()
     freq_lut = freq_lut.to(device=dev, dtype=torch.int32).contiguous()
     out = site_stats_core(counts, ref_codes, null_lut, freq_lut,
-                          min_cov=min_cov, min_covR=min_covR)
+                          min_cov=min_cov, min_covR=min_covR, pallas=pallas)
     out["clonR"] = clonR(out["cum"], out["total"], out["clonR_set"], seg,
                          rarefied_draws,
                          counts.shape[0] if m_stride is None else m_stride)

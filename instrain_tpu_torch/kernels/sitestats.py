@@ -169,17 +169,23 @@ def _fma32(a, b, c):
     return s.to(torch.float32)
 
 
-def _sum_squares4(x0, x1, x2, x3):
+def _sum_squares4(x0, x1, x2, x3, pallas: bool = False):
     """x0^2 + x1^2 + x2^2 + x3^2 in f32 as the JAX reference computes it
-    on its CPU backend: XLA contracts the 4-term reduce of squares into
-    the chain fma(x3, x3, fma(x2, x2, fma(x1, x1, x0 * x0)))."""
-    return _fma32(x3, x3, _fma32(x2, x2, _fma32(x1, x1, x0 * x0)))
+    on its CPU backend. XLA contracts site_stats' 4-term reduce of squares
+    into the chain fma(x3, x3, fma(x2, x2, fma(x1, x1, x0 * x0))). The
+    Pallas core's left-to-right sum ((x0^2 + x1^2) + x2^2) + x3^2
+    (pallas_sitestats.py:_kernel, `--engine pallas`) is contracted with
+    the first square of its first add as the fused product:
+    fma(x3, x3, fma(x2, x2, fma(x0, x0, x1 * x1)))."""
+    inner = _fma32(x0, x0, x1 * x1) if pallas else _fma32(x1, x1, x0 * x0)
+    return _fma32(x3, x3, _fma32(x2, x2, inner))
 
 
 def site_stats(counts, ref_codes, null_lut, freq_lut, key,
                min_cov: int = 5, min_covR: int = 50,
                rarefied_draws: int = 50, with_clonR: bool = True,
-               m_stride: Optional[int] = None) -> Dict[str, torch.Tensor]:
+               m_stride: Optional[int] = None,
+               pallas: bool = False) -> Dict[str, torch.Tensor]:
     """
     Args:
       counts: int [M, 4, L] — exact-mm base counts per position
@@ -188,6 +194,9 @@ def site_stats(counts, ref_codes, null_lut, freq_lut, key,
       freq_lut: int32 [maxcov+1] — min count satisfying min_freq by coverage
       key: uint32[2] key for the rarefied draws
       m_stride: mm extent of the rarefied-draw counter (default M)
+      pallas: clon rounded as the JAX package's Pallas core rounds it
+        (site_stats_pallas_full, `--engine pallas`: _sum_squares4); every
+        other output is the same either way
 
     Returns the JAX function's dict: [M, L] arrays (present, total int64,
     morphia/con/var/call/cls int8, row, clon/clonR f32, clonR_set,
@@ -246,7 +255,7 @@ def site_stats(counts, ref_codes, null_lut, freq_lut, key,
 
     # ---- clonality ----
     _, p = _cdf(cum, total)
-    clon_val = _sum_squares4(p[:, 0], p[:, 1], p[:, 2], p[:, 3])
+    clon_val = _sum_squares4(p[:, 0], p[:, 1], p[:, 2], p[:, 3], pallas)
     nan = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
     clon = torch.where(present & counted, clon_val, nan)
 

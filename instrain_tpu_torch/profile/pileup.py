@@ -110,10 +110,13 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
                    null_lut, freq_lut, min_cov: int = 5,
                    rarefied_coverage: int = 50, seed: int = 42,
                    max_chunk: int = 1 << 20,
-                   device=None) -> ScaffoldStats:
+                   device=None, pallas: bool = False) -> ScaffoldStats:
     """
     Run the site-stats kernels for one scaffold on `device` (None: the
-    current CUDA device; raises without a GPU).
+    current CUDA device; raises without a GPU). `pallas` (`--engine
+    pallas`) rounds clon as the JAX package's Pallas core does
+    (instrain_tpu/profile/pileup.py:215-223); the chunks, keys and every
+    other output are the dense engine's.
 
     Every output is position-local, so scaffolds longer than `max_chunk`
     are processed in position chunks and concatenated on host — one
@@ -144,7 +147,7 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
                 dev),
             null_t, freq_t, seg, min_cov=min_cov,
             min_covR=rarefied_coverage, rarefied_draws=rarefied_coverage,
-            m_stride=m_stride)
+            m_stride=m_stride, pallas=pallas)
         parts.append({k: v.cpu().numpy() for k, v in out.items()})
     if len(parts) == 1:
         arrays = parts[0]

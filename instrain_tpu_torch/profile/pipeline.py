@@ -1,7 +1,7 @@
 """
 The `profile` operation: BAM + FASTA -> profile directory — the
-counterpart of instrain_tpu/profile/pipeline.py, with the dense, hybrid
-and batch engines, on one device, over a mesh of devices
+counterpart of instrain_tpu/profile/pipeline.py, with the dense, pallas,
+hybrid and batch engines, on one device, over a mesh of devices
 (--mesh_devices, parallel/mesh.py) or over several processes
 (--distributed, parallel/distributed.py).
 
@@ -90,16 +90,14 @@ class _phase:
         return False
 
 
+ENGINES = ("auto", "dense", "hybrid", "batch", "pallas")
+
+
 def check_supported(cfg: ProfileConfig) -> None:
-    """Raise for every option of `profile` that this port does not run,
+    """Raise for an option value of `profile` that no engine runs,
     instead of ignoring it."""
-    if cfg.engine not in ("auto", "dense", "hybrid", "batch"):
-        # not a missing module: the Pallas TPU core has its Hopper
-        # counterpart in the dense engine's site_stats kernel
-        raise NotImplementedError(
-            f"--engine {cfg.engine} is the JAX package's Pallas TPU path; "
-            f"its counterpart here is --engine dense (ROADMAP.md, Queue "
-            f"2: K1)")
+    if cfg.engine not in ENGINES:
+        raise ValueError(f"engine {cfg.engine!r} (one of {ENGINES})")
     if cfg.distributed_store not in ("primary", "all"):
         raise ValueError(f"distributed_store {cfg.distributed_store!r} "
                          f"(primary or all)")
@@ -126,15 +124,17 @@ def resolve_run_engine(cfg_engine: str, device: torch.device,
     process owns) over `shards` devices, as the JAX package picks it
     (pipeline.py:239-246, :255, :305-306, :447-450): auto is dense on the
     CPU without a mesh, and otherwise batch from BATCH_MIN_SCAFFOLDS
-    scaffolds on and hybrid below; over a mesh, dense runs hybrid
-    (position-sharded); batch with one scaffold runs hybrid."""
+    scaffolds on and hybrid below (never pallas); over a mesh, dense and
+    pallas run hybrid (position-sharded); batch with one scaffold runs
+    hybrid. Pallas is the dense engine, scaffold by scaffold, with clon
+    rounded as the Pallas core rounds it."""
     engine = cfg_engine
     if engine == "auto":
         if device.type == "cpu" and shards == 1:
             return "dense"
         engine = ("batch" if n_scaffolds >= BATCH_MIN_SCAFFOLDS
                   else "hybrid")
-    elif engine == "dense" and shards > 1:
+    elif engine in ("dense", "pallas") and shards > 1:
         engine = "hybrid"
     if engine == "batch" and n_scaffolds <= 1:
         engine = "hybrid"
@@ -324,12 +324,13 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     if mesh is not None:
         logging.info(f"Sharding the profile kernels over {shards} devices "
                      f"({'positions' if engine == 'hybrid' else 'chunks'})")
-    if engine == "dense":
+    if engine in ("dense", "pallas"):
         finals = []
         for name in keep_local:
             logging.debug(get_worker_log("SplitProfile", name, "start"))
             res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
-                                        null_t, freq_t, device, gene_data)
+                                        null_t, freq_t, device, gene_data,
+                                        engine == "pallas")
             logging.debug(get_worker_log("SplitProfile", name, "end"))
             if res is not None:
                 with _phase("tables"):
@@ -434,19 +435,20 @@ def _inject_failure(name: str, cfg) -> None:
 
 
 def _profile_one_scaffold(bam, pairs, registry, name, cfg, null_lut,
-                          freq_lut, device, gene_data):
-    """One scaffold through the dense engine, its failure contained."""
+                          freq_lut, device, gene_data, pallas=False):
+    """One scaffold through the dense engine (clon as the Pallas core
+    rounds it where `pallas`), its failure contained."""
     try:
         return _profile_one_scaffold_inner(bam, pairs, registry, name, cfg,
                                            null_lut, freq_lut, device,
-                                           gene_data)
+                                           gene_data, pallas)
     except Exception as e:
         _contain(name, e)
         return None
 
 
 def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
-                                freq_lut, device, gene_data):
+                                freq_lut, device, gene_data, pallas=False):
     _inject_failure(name, cfg)
     rid = bam.name_to_ref_id.get(name)
     if rid is None:
@@ -461,7 +463,8 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
         stats = run_site_stats(pileup, ref_codes, null_lut, freq_lut,
                                min_cov=cfg.variant.min_cov,
                                rarefied_coverage=cfg.rarefied_coverage,
-                               seed=cfg.seed, device=device)
+                               seed=cfg.seed, device=device,
+                               pallas=pallas)
     with _phase("tables"):
         return _result_from_stats(name, L, stats, ref_codes, cfg, device,
                                   gene_data)

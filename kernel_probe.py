@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """
-A short first check of compare's overlap kernel (K7) and mm_aggregates on
-one NVIDIA GPU, for a kernel's first builds: builds the kernels, prints
-what ptxas says of their registers and spills, holds K7 at groups of
-(samples, mm levels, positions) against the host popcount and
-mm_aggregates at chunks of segments against its plain version, exact,
-and prints their times (K7 warm, by CUDA events; mm_aggregates on the
-device after an L2 flush, with its bytes bound). Given an earlier
+A short first check of compare's overlap kernel (K7), mm_aggregates and
+site_stats' --engine pallas instance on one NVIDIA GPU, for a kernel's
+first builds: builds the kernels, prints what ptxas says of their
+registers and spills, holds K7 at groups of (samples, mm levels,
+positions), up to 193 samples, against the host popcount, mm_aggregates
+at chunks of segments and the pallas instance of site_stats against
+their plain versions, exact, and prints their times (K7 warm, by CUDA
+events; mm_aggregates on the device after an L2 flush, with its bytes
+bound). Given an earlier
 compare.cu (one launch per scaffold, instrain_overlap_counts), it also
 times that kernel beside this one at three shapes, L2 flushed:
 
@@ -31,7 +33,9 @@ import chip_smoke as smoke
 GROUPS = [[(2, 1, 1), (3, 2, 4099), (8, 5, 40000)], [(16, 4, 1 << 23)],
           [(64, 3, 100000)],
           [(1, 1, 63), (2, 5, 64), (8, 3, 4099), (17, 2, 40000), (64, 4, 1)],
-          smoke.STUDY_GROUP]
+          smoke.STUDY_GROUP, [(65, 4, 40000)], [(128, 3, 100000)],
+          [(8, 5, 4099), (65, 2, 63), (130, 3, 40000), (1, 1, 1)],
+          [(193, 1, 4099), (66, 2, 1)]]
 CHUNKS = [(8, [40000] * 52), (8, [1 << 20]),
           (8, [1, 1237, 40000, 1_048_577, 300, 4096]),
           (33, [160, 1, 5000, 40000]), (1, [7, 3000]), (80, [700])]
@@ -87,6 +91,31 @@ def main():
                                                                   plan), 20)
         print(f"K7 group of {len(shapes)} from {shapes[0]}: exact={exact} "
               f"blocks={plan.n_blocks} warm {ms:.4f} ms", flush=True)
+    from instrain_tpu_torch.kernels import cuda_sitestats as C
+    from instrain_tpu_torch.kernels.nullmodel import \
+        analytic_null_thresholds
+    nl = torch.as_tensor(analytic_null_thresholds(max_coverage=10000),
+                         device=dev)
+    fl = torch.as_tensor(S.freq_min_count_lut(0.05, max_coverage=10000),
+                         device=dev)
+    for M, lengths in ((8, [1 << 20]), (3, [1237, 40000])):
+        counts, ref = smoke.segment_inputs(M, lengths, 5)
+        c, r = torch.from_numpy(counts).to(dev), torch.from_numpy(ref).to(dev)
+        got = C.site_stats_core(c, r, nl, fl, 5, 50, pallas=True)
+        smoke.compare_exact(C.site_stats_core_plain(c, r, nl, fl, 5, 50,
+                                                    pallas=True), got,
+                            f"site_stats pallas M={M} {lengths}")
+        dense = C.site_stats_core(c, r, nl, fl, 5, 50)
+        differ = int((smoke._bits(dense["clon"]) !=
+                      smoke._bits(got["clon"])).sum())
+        ms = smoke.cuda_ms(torch, lambda: C.site_stats_core(
+            c, r, nl, fl, 5, 50, pallas=True), 20)
+        ms_d = smoke.cuda_ms(torch, lambda: C.site_stats_core(
+            c, r, nl, fl, 5, 50), 20)
+        print(f"site_stats pallas M={M} L={sum(lengths)}: exact against "
+              f"its plain version, clon differs from dense at {differ} "
+              f"cells; warm {ms:.4f} ms, dense instance {ms_d:.4f} ms",
+              flush=True)
     keys = ("total", "clon", "clonR", "row", "morphia", "cls", "present")
     for M, lengths in CHUNKS:
         full, seg = smoke.site_stats_chunk(torch, M, lengths, 3)

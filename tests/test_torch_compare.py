@@ -77,6 +77,10 @@ GROUPS = [
     [(64, 2, 130), (2, 1, 63), (17, 4, 1000), (1, 2, 65)],
     [(3, 1, 1)],
     [(2, 5, 20000), (8, 2, 1), (16, 4, 4099)],
+    # past 64 samples: two and three tiles of 64 among small scaffolds
+    [(65, 2, 4099), (1, 1, 1), (100, 1, 63), (17, 3, 63)],
+    [(130, 2, 1), (17, 1, 4099), (65, 1, 63)],
+    [(130, 1, 4099), (100, 2, 1), (1, 2, 63)],
 ]
 
 
@@ -104,17 +108,19 @@ def test_overlap_counts_group_match_jax(gi):
 
 
 def _block_rows(plan):
-    """(scaffold, mm level, first word, end word) of each block of the
-    group launch, as csrc/compare.cu:block_row finds them."""
+    """(scaffold, mm level, first word, end word, tile pair) of each block
+    of the group launch, as csrc/compare.cu:block_row finds them."""
     t = plan.table
     S = len(plan.shapes)
     rows = []
     for b in range(plan.n_blocks):
         s = max(k for k in range(S) if t[6, k] <= b)
-        W, chunk = int(t[2, s]), int(t[3, s])
+        W, chunk, P = int(t[2, s]), int(t[3, s]), int(t[7, s])
         nb = -(-W // chunk)
-        m, c = divmod(b - int(t[6, s]), nb)
-        rows.append((s, m, c * chunk, min(c * chunk + chunk, W)))
+        rc, p = divmod(b - int(t[6, s]), P)
+        m, c = divmod(rc, nb)
+        rows.append((s, m, c * chunk, min(c * chunk + chunk, W),
+                     K.tile_pair(int(t[0, s]), p)))
     return rows
 
 
@@ -122,26 +128,36 @@ def _block_rows(plan):
 @pytest.mark.parametrize("shapes", [
     [(8, 5, 625)] * 128, [(16, 4, 1 << 17)], [(64, 3, 1563)],
     [(1, 1, 1), (2, 5, 1), (17, 3, 70000), (64, 1, 63)],
-    [(2, 1, 1 << 17)] + [(8, 2, 625)] * 7])
+    [(2, 1, 1 << 17)] + [(8, 2, 625)] * 7,
+    [(65, 2, 4099), (130, 3, 1563), (1, 1, 1)], [(128, 3, 1563)],
+    [(100, 1, 63), (8, 5, 625), (193, 2, 70000)]])
 def test_group_plan_covers_every_row(shapes, sms):
     """The group launch's blocks cover every (scaffold, mm level) row's
-    words once, in chunks within the kernel's bounds, and the offsets lay
-    the words and counts end to end."""
+    words once for each of its scaffold's tile pairs (bi <= bj over tiles
+    of 64 samples: one up to 64 samples, three up to 128, six up to 192),
+    in chunks within the kernel's bounds, and the offsets lay the words
+    and counts end to end. Up to 64 samples the plan is the one-tile
+    plan: a tile pair's block reads about the bytes of a block of it."""
     plan = K.group_plan(shapes, sms)
     t = plan.table
     seen = {}
-    for s, m, w0, w1 in _block_rows(plan):
+    for s, m, w0, w1, pair in _block_rows(plan):
         assert 0 <= w0 < w1 <= shapes[s][2]
-        seen.setdefault((s, m), []).append((w0, w1))
+        seen.setdefault((s, m, pair), []).append((w0, w1))
     for s, (n, mg, W) in enumerate(shapes):
         chunk = int(t[3, s])
         assert chunk == W or (chunk % K.GROUP_MIN_CHUNK == 0 and
                               K.GROUP_MIN_CHUNK <= chunk <=
                               K.GROUP_MAX_CHUNK)
+        T = -(-n // K.GROUP_TILE)
+        assert t[7, s] == K.tile_pairs(n) == T * (T + 1) // 2
+        pairs = [(bi, bj) for bi in range(T) for bj in range(bi, T)]
+        assert [K.tile_pair(n, p) for p in range(len(pairs))] == pairs
         for m in range(mg):
-            spans = sorted(seen.pop((s, m)))
-            assert spans[0][0] == 0 and spans[-1][1] == W
-            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            for pair in pairs:
+                spans = sorted(seen.pop((s, m, pair)))
+                assert spans[0][0] == 0 and spans[-1][1] == W
+                assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
         assert t[4, s + 1] - t[4, s] == n * mg * W
         assert t[5, s + 1] - t[5, s] == mg * n * (n + 1)
     assert not seen
@@ -149,6 +165,36 @@ def test_group_plan_covers_every_row(shapes, sms):
     if sms == 132 and shapes == [(8, 5, 625)] * 128:
         # the study's rows are one block each
         assert plan.n_blocks == 128 * 5
+    if all(n <= K.GROUP_TILE for n, _, _ in shapes):
+        # the one-tile plan: a block reads about total / (4 sms) words
+        total = sum(n * mg * w for n, mg, w in shapes)
+        per = -(-total // (sms * K.GROUP_BLOCKS_PER_SM))
+        for s, (n, _, w) in enumerate(shapes):
+            want = -(-per // n // K.GROUP_MIN_CHUNK) * K.GROUP_MIN_CHUNK
+            assert t[3, s] == min(max(want, K.GROUP_MIN_CHUNK),
+                                  K.GROUP_MAX_CHUNK, w)
+
+
+def test_group_plan_tile_bytes():
+    """A block reads about the same bytes at 128 samples as at 8: the
+    words of the samples of its tile pair over its chunk."""
+    def mean_block_words(shapes):
+        plan = K.group_plan(shapes)
+        t = plan.table
+        words = []
+        for s, m, w0, w1, (bi, bj) in _block_rows(plan):
+            n = int(t[0, s])
+            ni = min(64, n - 64 * bi)
+            nj = 0 if bi == bj else min(64, n - 64 * bj)
+            words.append((ni + nj) * (w1 - w0))
+        return np.mean(words), plan.n_blocks
+
+    # the same words read in all: 8 * 2^20 = 128 * 2^15 * 2 (two tiles,
+    # each read by two tile pairs)
+    small, nb_small = mean_block_words([(8, 3, 1 << 20)])
+    big, nb_big = mean_block_words([(128, 3, 1 << 15)])
+    assert 0.8 < big / small < 1.25, (small, big)
+    assert 0.8 < nb_big / nb_small < 1.25, (nb_small, nb_big)
 
 
 @pytest.fixture
@@ -164,7 +210,9 @@ def cuda_device():
     [(16, 4, 1 << 23)], [(64, 3, 100_000)],
     [(1, 1, 63), (2, 5, 64), (8, 3, 4099), (17, 2, 40_000), (64, 4, 1)],
     [(8, 5, 40_000)] * 128,
-    [(2, 1, 63), (16, 4, 1 << 23), (8, 5, 40_000), (17, 1, 1)]])
+    [(2, 1, 63), (16, 4, 1 << 23), (8, 5, 40_000), (17, 1, 1)],
+    [(65, 4, 40_000)], [(128, 3, 100_000)],
+    [(8, 5, 4099), (65, 2, 63), (130, 3, 40_000), (1, 1, 1)]])
 def test_overlap_group_kernel_matches_plain_on_gpu(shapes, cuda_device):
     rng = np.random.default_rng(len(shapes))
     words = []
@@ -404,7 +452,7 @@ def test_jax_profiledir_reads_port_comparisons(port_rcs):
 
 def test_auto_engine_rule():
     """The auto rule decides per comparison group, from the summed
-    n^2 * Mg * L of its scaffolds of at most 64 samples."""
+    n^2 * Mg * L of its scaffolds, whatever their sample counts."""
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
     bound = CP.DEVICE_MIN_WORK
     use = CP.use_device_overlap
@@ -418,12 +466,15 @@ def test_auto_engine_rule():
     assert use("auto", gpu, [half]) == [False]
     assert use("auto", gpu, [half, half]) == [True, True]
     assert use("auto", gpu, [half, (n, mg, 1)]) == [False, False]
-    # scaffolds of more than 64 samples take the host popcount and do not
-    # count towards the bound
+    # scaffolds of more than 64 samples count towards the bound like any
+    # other: one of 65 samples at the bound and one position under it
+    n65 = -(-bound // (65 * 65))
+    assert use("auto", gpu, [(65, 1, n65)]) == [True]
+    assert use("auto", gpu, [(65, 1, n65 - 1)]) == [False]
     big = (65, 9, 1 << 30)
-    assert use("auto", gpu, [big]) == [False]
-    assert use("auto", gpu, [big, half]) == [False, False]
-    assert use("auto", gpu, [big, half, half]) == [False, True, True]
+    assert use("auto", gpu, [big]) == [True]
+    assert use("auto", gpu, [big, half]) == [True, True]
+    assert use("auto", gpu, [(65, 1, 1), half]) == [False, False]
     assert use("auto", gpu, [(64, 9, 1 << 30)]) == [True]
     # never on the CPU; host and device as asked
     assert use("auto", cpu, [(16, 4, 1 << 30)] * 3) == [False] * 3
@@ -559,3 +610,60 @@ def test_ranged_decode_matches_jax(samples, tmp_path):
     for f in ("ref_id", "pos", "qname_id", "nm", "ev_pos", "ev_base"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.qnames == want.qnames
+
+
+# ------------------------------------------------- more than 64 samples
+
+@pytest.fixture(scope="module")
+def study66(tmp_path_factory):
+    """66 tiny samples (2 scaffolds of 2 kb, 5-15x), each profiled by the
+    port on the CPU, compared by the port on its overlap kernel's plain
+    version (--engine device, one group) and on the host popcount."""
+    d = tmp_path_factory.mktemp("study66")
+    n = 66
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)         # many small ops: threads only contend
+    try:
+        fasta, bams, _ = synth_samples(str(d), n, 2, 2000,
+                                       [5 + i % 11 for i in range(n)],
+                                       seed=11)
+        profiles = []
+        for i, bam in enumerate(bams):
+            profiles.append(str(d / f"p{i}.IS"))
+            assert port_main(["profile", bam, fasta, "-o", profiles[-1],
+                              "--device", "cpu", "--skip_genome_wide",
+                              "--skip_plot_generation"]) == 0
+        flags = ["--skip_plot_generation", "--device", "cpu"]
+        shapes = []
+        real = CC.overlap_counts_group
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(CP.cuda_compare, "overlap_counts_group",
+                       lambda buf, plan: shapes.append(plan.shapes) or
+                       real(buf, plan))
+            rcs = {eng: _run(port_main, profiles, str(d / f"{eng}.RC"),
+                             flags + ["--engine", eng])
+                   for eng in ("device", "host")}
+    finally:
+        torch.set_num_threads(threads)
+    return profiles, rcs, shapes
+
+
+def test_compare_past_64_samples(study66):
+    """compare --engine device over 66 samples (the group's scaffolds one
+    tile pair past 64 samples each) equals --engine host and the JAX
+    package's compare, byte for byte: a row per (scaffold, pair, mm
+    level), in one process (row order follows the hash seed)."""
+    profiles, rcs, shapes = study66
+    # the device run's one group call, its two scaffolds of 66 samples
+    assert [[n for n, _, _ in g] for g in shapes] == [[66, 66]]
+    want = _tsv(rcs["host"], "comparisonsTable")
+    assert _tsv(rcs["device"], "comparisonsTable") == want
+    table = pd.read_csv(os.path.join(
+        rcs["device"], "output", "device.RC_comparisonsTable.tsv"), sep="\t")
+    assert len(table) >= 2 * 66 * 65 // 2
+    assert set(table["scaffold"]) == {"scaf_0", "scaf_1"}
+    jax_out = os.path.join(os.path.dirname(rcs["host"]), "jax.RC")
+    assert jax_main(["compare", "-i"] + profiles +
+                    ["-o", jax_out, "--engine", "host",
+                     "--skip_plot_generation"]) == 0
+    assert _tsv(jax_out, "comparisonsTable") == want
