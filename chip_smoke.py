@@ -67,7 +67,13 @@ Phases (each prints its own lines; the first failure exits non-zero):
      tables, each kernel's launch count against the planned chunks and
      the scaffolds past the linkage bound, one copy to the card and one
      back for each device linkage call, and the absence of scaffold
-     failures; then the metagenome with -g (synth_genes' prodigal file)
+     failures, and the summed launches against the recorded ones (5 of
+     each batch kernel, 1 of ld); the metagenome's batch run overlaps its stores
+     with the device loop (the read results on a thread of their own,
+     started before the loop's last chunk landed; covT/clonT/clonTR
+     through stream writers): its main-thread phases, summed against its
+     wall, and the store threads' seconds beside them; then the
+     metagenome with -g (synth_genes' prodigal file)
      and the plots through --engine auto (batch): a gene_info row for
      every gene of the profiled scaffolds, each kernel launched as often
      as without -g and plots, no scaffold or gene failure, its wall and
@@ -75,10 +81,11 @@ Phases (each prints its own lines; the first failure exits non-zero):
      matplotlib imports (where it does not, `Plotting failed` logged and
      the run's checks as before); the metagenome with -g through
      --engine hybrid (TSVs and gene_info byte-identical to the batch
-     run), both engines' device copies under torch.profiler (batch with
-     -g and the plots too: the same copies as without), the deep input
-     on --device cpu
-     with the device linkage engine forced (TSVs byte-identical), and the
+     run; its serially stored covT, clonT, clonTR, Rdic and mapping_info
+     equal to the batch run's streamed ones through ProfileDir.get), both
+     engines' device copies under torch.profiler (batch: the recorded 11
+     H2D and 6 D2H copies, and with -g and the plots the same), the deep
+     input on --device cpu with the device linkage engine forced (TSVs byte-identical), and the
      metagenome and the isolate through --engine dense (launch counts
      reset and read around each run: site_stats and clonR once per 1 Mb
      position chunk, the other kernels never; the reference's
@@ -1231,6 +1238,54 @@ def read_table(out, name):
                        else 0)
 
 
+def store_overlap(wall, phases, marks):
+    """What the batch engine's overlapped stores did in one run: the
+    main thread's phases summed against the wall, the store threads'
+    seconds, and how long before the loop's last chunk landed the
+    read-results thread started. Fails unless both threads ran and the
+    read results started before the loop ended."""
+    threads = ("store_reads", "special_stream")
+    check(all(phases.get(k, 0.0) > 0 for k in threads),
+          f"the store threads did not run: phases {phases}")
+    check(marks.get("store_reads_start", float("inf")) <
+          marks.get("loop_end", 0.0),
+          f"the read results did not start before the loop's last chunk "
+          f"landed: {marks}")
+    main = sum(v for k, v in phases.items()
+               if k not in threads and k != "genes")
+    lead = marks["loop_end"] - marks["store_reads_start"]
+    after = marks["store_reads_end"] - marks["loop_end"]
+    return (f"main-thread phases {main:.3f} s of the {wall:.3f} s wall; "
+            f"on the store threads store_reads {phases['store_reads']:.3f}"
+            f" s, special_stream {phases['special_stream']:.3f} s; the "
+            f"read results started {lead:.3f} s before the loop's last "
+            f"chunk landed and ended {after:+.3f} s from it")
+
+
+def same_stores(a_dir, b_dir):
+    """The attributes a batch run streams or overlaps (covT, clonT,
+    clonTR, Rdic, mapping_info) equal between two profiles, through
+    ProfileDir.get: the same scaffolds, mm levels and series, the same
+    Rdic, the same mapping_info table. Returns the file each was stored
+    in by the first profile."""
+    from instrain_tpu_torch.store.profile_dir import ProfileDir
+    a, b = ProfileDir(a_dir), ProfileDir(b_dir)
+    for k in ("covT", "clonT", "clonTR"):
+        x, y = a.get(k), b.get(k)
+        check(list(x) == list(y) and len(x) > 0,
+              f"{k}: scaffolds differ between {a_dir} and {b_dir}")
+        for s in x:
+            check(list(x[s]) == list(y[s]) and all(
+                x[s][mm].equals(y[s][mm]) for mm in x[s]),
+                f"{k}/{s}: series differ between {a_dir} and {b_dir}")
+    check(a.get("Rdic") == b.get("Rdic"), "Rdic differs")
+    check(a.get("mapping_info").equals(b.get("mapping_info")),
+          "mapping_info differs")
+    adb = a._get_attributes()
+    return {k: os.path.basename(adb.loc[k, "value"])
+            for k in ("covT", "clonT", "clonTR", "Rdic", "mapping_info")}
+
+
 def run_profile(bam, fasta, out, engine, device="cuda", genes=None,
                 plots=False):
     from instrain_tpu_torch.cli import main
@@ -1705,6 +1760,10 @@ def phase_end_to_end(torch):
                    **CL.launch_counts()}
             case_launches[name] = got
             if name == "metagenome":
+                from instrain_tpu_torch.profile import pipeline
+                log("e2e", f"metagenome --engine auto (batch), overlapped "
+                           f"stores: " + store_overlap(
+                               *timings[outs[name]], dict(pipeline.MARKS)))
                 # the batch engine's planned chunks, from the profiled
                 # scaffolds (in run order) and their mm levels
                 pdir = ProfileDir(outs[name])
@@ -1757,6 +1816,9 @@ def phase_end_to_end(torch):
           f"the deep input's linkage ran on the host engine "
           f"({linkage_choice[-1:]})")
     log("e2e", f"launches in the main paths, summed: {launches}")
+    want = {**dict.fromkeys(five, 5), "ld": 1}
+    check(launches == want, f"main paths' launches {launches}, recorded "
+                            f"{want}")
 
     # the metagenome through --engine auto (batch) with -g and the plots:
     # the genes of a chunk are profiled on the host while the next chunk
@@ -1789,8 +1851,11 @@ def phase_end_to_end(torch):
     hybrid = run("metagenome", "hybrid", genes=meta_genes)
     check(tsvs(hybrid, GENE_TABLES) == tsvs(with_genes, GENE_TABLES),
           "metagenome -g: --engine hybrid TSVs differ from --engine batch")
+    files = same_stores(with_genes, hybrid)
     log("e2e", "metagenome -g: --engine hybrid TSVs (gene_info too) "
-               "byte-identical to the batch engine's")
+               "byte-identical to the batch engine's; its serially stored "
+               "covT, clonT, clonTR, Rdic and mapping_info equal the batch "
+               f"run's streamed and overlapped ones ({files})")
     # device copies and busy time of both engines on the metagenome, and
     # of the batch engine with -g: the same copies as without
     traced = {}
@@ -1836,6 +1901,9 @@ def phase_end_to_end(torch):
         check(all(a == b for a, b in copies.values()),
               f"metagenome --engine batch: device copies (without -g and "
               f"plots, with both) {copies}")
+        check(copies == {"HtoD": [11, 11], "DtoH": [6, 6]},
+              f"metagenome --engine batch: device copies {copies}, recorded "
+              f"11 H2D and 6 D2H")
         log("e2e", f"metagenome --engine batch: the same device copies "
                    f"with -g and plots as without under torch.profiler "
                    f"{copies}")

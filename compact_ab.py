@@ -3,7 +3,8 @@
 The compaction kernels select_rows and mm_aggregates, compare's overlap
 kernel (K7) and device linkage's ld kernel (K6) of this checkout against
 an earlier design of the same kernels, in one process on one NVIDIA GPU,
-each design called through its own wrappers.
+each design called through its own wrappers; and (stores) the whole
+`profile` of the metagenome through each package.
 
     mkdir -p .scratch/base
     git archive a1862b1 instrain_tpu_torch | tar -x -C .scratch/base
@@ -12,7 +13,8 @@ each design called through its own wrappers.
 DIR is the earlier commit's package: it is loaded beside this checkout's
 as the package `instrain_earlier` (its modules import one another
 relatively) and builds its own kernels into its own _build/. PARTs (all
-by default): peak, overlap, group, compact, ld. The overlap part needs an
+by default): peak, overlap, group, compact, ld, stores. The overlap part
+needs an
 earlier package with the per-scaffold K7 entry (60a2909's, the design
 the group launch replaced); group one with the group launch
 (overlap_counts_group: 8e387e8's, the design before the sample tiles,
@@ -43,6 +45,20 @@ and this design with and without its draws made ahead; then the whole device lin
 the table, of both packages, by the host's clock to synchronize, with
 the copies between host and device each makes counted under
 torch.profiler.
+
+stores: chip_smoke.py's metagenome (128 x 40 kb at 30x, synth seed 7)
+through `profile --engine auto` (the batch engine) of the earlier
+package and of this checkout, one warm-up run each, then STORE_RUNS runs
+each in turns (earlier, this, this, earlier, ...), every run's TSVs
+byte-identical to the first run's of the other package; the wall (the
+CLI call, to a synchronized card) and the phases store, tables,
+store_reads and special_stream (the last two on the store threads of a
+package that overlaps its stores; absent, 0, in one that does not) of
+every run, and their medians. Against 0d14f63's package, the design
+before the batch engine's overlapped stores:
+
+    git archive 0d14f63 instrain_tpu_torch | tar -x -C .scratch/base0d
+    python3 compact_ab.py .scratch/base0d/instrain_tpu_torch stores
 
 At each shape the designs' outputs are first held equal bit for bit;
 then, in turns (earlier, this, this, earlier), every call after an L2
@@ -450,7 +466,68 @@ def peak_rates():
     return res.stdout
 
 
-PARTS = ("peak", "overlap", "group", "compact", "ld")
+STORE_RUNS = 6                          # runs of each package (stores)
+STORE_KEYS = ("wall", "store", "tables", "store_reads", "special_stream")
+
+
+def ab_stores(torch, card):
+    """The metagenome's `profile --engine auto` through both packages, in
+    turns: {package: {key: [seconds of each run], "median_" + key: ...}}
+    for STORE_KEYS."""
+    from statistics import median
+    import instrain_earlier.cli as ecli
+    import instrain_earlier.profile.pipeline as epipe
+    from instrain_tpu_torch.cli import main as this_main
+    from instrain_tpu_torch.profile import pipeline as tpipe
+    from instrain_tpu_torch.synth import synth
+    d = os.path.join(WORK, "stores")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    name, S, L, cov = smoke.MAIN_CASES[0]
+    fasta, bam, _ = synth(d, S=S, L=L, COV=cov, seed=7)
+    packages = {"earlier": (ecli.main, epipe), "this": (this_main, tpipe)}
+    first = {}
+
+    def run(pkg, tag):
+        main, pipe = packages[pkg]
+        out = os.path.join(d, f"{pkg}_{tag}.IS")
+        pipe.PHASES = {}
+        t0 = time.perf_counter()
+        rc = main(["profile", bam, fasta, "-o", out, "--engine", "auto"] +
+                  smoke.FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases, pipe.PHASES = dict(pipe.PHASES), None
+        smoke.check(rc == 0, f"{pkg} profile exited {rc}")
+        texts = smoke.tsvs(out)
+        other = first.get("this" if pkg == "earlier" else "earlier")
+        smoke.check(other is None or texts == other,
+                    f"{pkg} run {tag}: TSVs differ from the other package's")
+        first.setdefault(pkg, texts)
+        shutil.rmtree(out)
+        return dict(phases, wall=wall)
+
+    for pkg in packages:
+        run(pkg, "warm")
+    runs = {pkg: [] for pkg in packages}
+    for r in range(STORE_RUNS // 2):
+        for pkg in ("earlier", "this", "this", "earlier"):
+            runs[pkg].append(run(pkg, f"{r}_{len(runs[pkg])}"))
+    out = {}
+    for pkg, rs in runs.items():
+        out[pkg] = {k: [x.get(k, 0.0) for x in rs] for k in STORE_KEYS}
+        out[pkg].update({f"median_{k}": median(v)
+                         for k, v in list(out[pkg].items())})
+        smoke.log("stores", f"{name} --engine auto, {pkg} package, "
+                            f"{len(rs)} runs on {card}: " + "; ".join(
+                                f"{k} " + ", ".join(f"{v:.3f}" for v in
+                                                    out[pkg][k]) +
+                                f" (median {out[pkg]['median_' + k]:.3f})"
+                                for k in STORE_KEYS) + " s")
+    return out
+
+
+PARTS = ("peak", "overlap", "group", "compact", "ld", "stores")
 
 
 def main():
@@ -487,6 +564,8 @@ def main():
         if "ld" in parts:
             results["ld"] = ab_linkage(torch, ecl, card, deep_call,
                                        deep_args)
+        if "stores" in parts:
+            results["stores"] = ab_stores(torch, card)
     except smoke.SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

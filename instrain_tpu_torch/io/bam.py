@@ -83,6 +83,11 @@ def _bind(lib):
         ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_uint8,
         ct.POINTER(ct.c_int32), ct.POINTER(ct.c_uint8),
         ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64), ct.c_int64]
+    lib.bd_baq_one.restype = ct.c_int
+    lib.bd_baq_one.argtypes = [
+        ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_int64,
+        ct.POINTER(ct.c_uint32), ct.c_int, ct.POINTER(ct.c_uint8),
+        ct.POINTER(ct.c_uint8), ct.c_int, ct.POINTER(ct.c_uint8)]
     return lib
 
 
@@ -253,6 +258,10 @@ class BamArrays:
     def name_to_ref_id(self) -> Dict[str, int]:
         return {n: i for i, n in enumerate(self.ref_names)}
 
+    def records_of_ref(self, rid: int) -> np.ndarray:
+        """Indices of the records on reference rid, in file order."""
+        return np.nonzero(self.ref_id == rid)[0]
+
 
 def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
                threads: int = 6, baq: bool = False,
@@ -326,3 +335,25 @@ def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
     finally:
         if h:
             lib.bd_free(h)
+
+
+def baq_one(ref_codes: np.ndarray, pos: int, cigar: np.ndarray,
+            seq_codes: np.ndarray, qual: np.ndarray) -> np.ndarray:
+    """BAQ-capped qualities of one alignment (native/baq.cc bd_baq_one):
+    the read's base codes `seq_codes` with qualities `qual`, aligned at
+    0-based `pos` of `ref_codes` by the BAM-encoded `cigar` (length << 4 |
+    op). Where the alignment cannot be realigned, `qual` unchanged (a
+    copy)."""
+    lib = _load_lib()
+    ref_codes = np.ascontiguousarray(ref_codes, dtype=np.uint8)
+    cigar = np.ascontiguousarray(cigar, dtype=np.uint32)
+    seq_codes = np.ascontiguousarray(seq_codes, dtype=np.uint8)
+    qual = np.ascontiguousarray(qual, dtype=np.uint8)
+    out = qual.copy()
+    u8 = ct.POINTER(ct.c_uint8)
+    rc = lib.bd_baq_one(
+        ref_codes.ctypes.data_as(u8), len(ref_codes), pos,
+        cigar.ctypes.data_as(ct.POINTER(ct.c_uint32)), len(cigar),
+        seq_codes.ctypes.data_as(u8), qual.ctypes.data_as(u8), len(qual),
+        out.ctypes.data_as(u8))
+    return out if rc == 0 else qual.copy()

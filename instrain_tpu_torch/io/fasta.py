@@ -71,6 +71,11 @@ def seq_to_codes(seq: np.ndarray) -> np.ndarray:
     return BASE2CODE[seq]
 
 
+def codes_to_str(codes: np.ndarray) -> str:
+    """Base codes -> their sequence text (code 4 and above: N)."""
+    return CODE2BASE[np.minimum(codes, 4)].tobytes().decode()
+
+
 def iterate_splits(s_len: int, window_len: int) -> Iterator[Tuple[int, int]]:
     """
     0-based double-inclusive windows, exactly the reference's chunking
@@ -128,6 +133,10 @@ class ScaffoldRegistry:
 
     def length_of(self, name: str) -> int:
         return int(self.lengths[self.name_to_id[name]])
+
+    def splits_of(self, name: str) -> List[Tuple[int, int]]:
+        """The scaffold's windows (iterate_splits over its length)."""
+        return list(iterate_splits(self.length_of(name), self.window_length))
 
 
 def load_scaff_list(path: Optional[str]):

@@ -32,11 +32,21 @@ it profiles only its scaffolds, and the payloads meet in one gather,
 after which process 0 (or, with distributed_store "all", every process)
 writes the profile directory. Every process runs the same collectives in
 the same order, whatever it owns.
+
+Under the batch engine (more than one kept scaffold) the stores overlap
+the device loop, as in the JAX package (instrain_tpu/profile/
+pipeline.py:255-301): the read-filter results are written on a thread of
+their own (instrain-store-reads), and covT, clonT and clonTR go to
+SpecialStreamWriters scaffold by scaffold from another
+(instrain-hd5-stream) as each chunk's tables are built; the writers
+register their attributes after the loop, before the other results.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -54,7 +64,7 @@ from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
 from ..parallel import distributed as dist_mod
 from ..parallel.mesh import Mesh, make_mesh, resolve_device
 from ..store import generate as gen
-from ..store.profile_dir import ProfileDir
+from ..store.profile_dir import ProfileDir, SpecialStreamWriter
 from . import compact as compact_mod
 from . import genes as genes_mod
 from . import genome as genome_mod
@@ -65,11 +75,20 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      make_luts, run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
-# per phase (decode, filter, pileup, kernels, tables, gather, store,
-# genome, plots) of a profile run, and in "genes" the gene file's parse and the
-# gene calls (the calls lie inside "tables"); None adds no timers.
-# chip_smoke.py reads it.
+# per phase of a profile run. The main thread's phases (decode, filter,
+# pileup, kernels, tables, gather, store, genome, plots) add up to its
+# wall; "genes" holds the gene file's parse and the gene calls (the calls
+# lie inside "tables"); "store_reads" and "special_stream" the seconds of
+# the batch engine's two store threads, which overlap the main thread's
+# phases. None adds no timers. chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
+_PHASES_LOCK = threading.Lock()
+
+# time.perf_counter() of a profile run's moments, reset by each run:
+# "loop_end", when the compact engines' last results landed, and, where
+# the read results are stored on their own thread, "store_reads_start"
+# and "store_reads_end". chip_smoke.py reads it to check the overlap.
+MARKS: Dict[str, float] = {}
 
 
 class _phase:
@@ -85,9 +104,64 @@ class _phase:
 
     def __exit__(self, *exc):
         if PHASES is not None:
-            PHASES[self.key] = (PHASES.get(self.key, 0.0) +
-                                time.perf_counter() - self.t0)
+            dt = time.perf_counter() - self.t0
+            with _PHASES_LOCK:
+                PHASES[self.key] = PHASES.get(self.key, 0.0) + dt
         return False
+
+
+def _start_thread(name: str, target):
+    """Run target() on a daemon thread called `name`. Returns join(raising
+    =True), which waits for it and then raises what target raised, if
+    anything (raising False: drops it)."""
+    errors: List[BaseException] = []
+
+    def run():
+        try:
+            target()
+        except BaseException as e:  # noqa: BLE001 -- raised by join()
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name=name, daemon=True)
+    thread.start()
+
+    def join(raising: bool = True):
+        thread.join()
+        if errors and raising:
+            raise errors[0]
+    return join
+
+
+def _start_special_writes(stream: Dict[str, "SpecialStreamWriter"]):
+    """The thread that hands each scaffold's covT/clonT/clonTR views to
+    the writers of `stream` (instrain_tpu/profile/pipeline.py:623-658).
+    Returns (put, finish): put((name, {attr: view})) queues one scaffold,
+    finish(raising=True) waits for every queued write. One scaffold's
+    failed write is logged as a SpecialWriteError and costs that
+    scaffold's datasets, never the run: it is host I/O."""
+    todo: "queue.Queue" = queue.Queue()
+
+    def run():
+        while True:
+            item = todo.get()
+            if item is None:
+                return
+            name, views = item
+            try:
+                with _phase("special_stream"):
+                    for attr, writer in stream.items():
+                        writer.write(name, views[attr])
+            except Exception as e:
+                log_failure("SpecialWriteError", name, str(e))
+                logging.error(f"special stream write failed for {name}: "
+                              f"{e}")
+
+    join = _start_thread("instrain-hd5-stream", run)
+
+    def finish(raising: bool = True):
+        todo.put(None)
+        join(raising)
+    return todo.put, finish
 
 
 ENGINES = ("auto", "dense", "hybrid", "batch", "pallas")
@@ -240,6 +314,7 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
 def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                   isdir: Optional[ProfileDir], device: torch.device,
                   mesh: Optional[Mesh]) -> Optional[ProfileDir]:
+    MARKS.clear()
     log_checkpoint("main_profile", "filter_reads", "start")
     registry = fasta_io.ScaffoldRegistry.from_fasta(
         fasta_path, window_length=cfg.window_length,
@@ -278,13 +353,20 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     # writes the profile directory, its read results included, also on
     # the zero-pair abort; "all": every process writes a whole one
     primary_peer = isdir is None
-    # read-filtering results (reference: controller.py:260-322)
-    if not primary_peer:
-        with _phase("store"):
-            _store_read_results(isdir, bam, pairs, bam_path, fasta_path,
-                                registry, cfg)
+
+    def store_reads():
+        # read-filtering results (reference: controller.py:260-322)
+        _store_read_results(isdir, bam, pairs, bam_path, fasta_path,
+                            registry, cfg)
+
     total_pairs = int(pairs.mapping_info["filtered_pairs"].iloc[0])
     if total_pairs == 0:
+        # the mapping report is written before the abort, so that the run
+        # can be looked into (the reference's controller.py:260-322 stores
+        # before its 314-317 abort)
+        if not primary_peer:
+            with _phase("store"):
+                store_reads()
         raise RuntimeError(
             "No paired reads remain after filtering; consider "
             "--pairing_filter or --use_full_fasta_header")
@@ -324,30 +406,80 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     if mesh is not None:
         logging.info(f"Sharding the profile kernels over {shards} devices "
                      f"({'positions' if engine == 'hybrid' else 'chunks'})")
-    if engine in ("dense", "pallas"):
-        finals = []
-        for name in keep_local:
-            logging.debug(get_worker_log("SplitProfile", name, "start"))
-            res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
-                                        null_t, freq_t, device, gene_data,
-                                        engine == "pallas")
-            logging.debug(get_worker_log("SplitProfile", name, "end"))
-            if res is not None:
-                with _phase("tables"):
-                    finals.append(_finalize_result(res, cfg, bam.qnames))
-    else:
-        finals = _profile_scaffolds_compact(bam, pairs, registry, keep_local,
-                                            cfg, engine, null_t, freq_t,
-                                            device, gene_data, mesh)
-    if multi_host:
-        with _phase("gather"):
-            finals = _gather_results(finals, keep, unpack=not primary_peer)
-        if primary_peer:
-            # this process's scaffolds are in the gather: process 0 writes
-            log_checkpoint("main_profile", "profile_scaffolds", "end")
-            return None
+    # the batch engine (only with more than one kept scaffold:
+    # resolve_run_engine) overlaps the stores with its device loop
+    # (instrain_tpu/profile/pipeline.py:255-301): the read results on a
+    # thread of their own, started here, and covT/clonT/clonTR through
+    # stream writers fed as each scaffold's tables are built. With several
+    # processes the payloads keep their views for the gather, and the
+    # gathered scaffolds go through the same writers afterwards.
+    join_reads, stream = None, {}
+    if not primary_peer and engine == "batch":
+        def reads_thread():
+            MARKS["store_reads_start"] = time.perf_counter()
+            with _phase("store_reads"):
+                store_reads()
+            MARKS["store_reads_end"] = time.perf_counter()
+        join_reads = _start_thread("instrain-store-reads", reads_thread)
+        stream = {k: isdir.open_special_stream(k, d)
+                  for k, d in _SPECIAL_DESCR.items()}
+    elif not primary_peer:
+        with _phase("store"):
+            store_reads()
+    try:
+        if engine in ("dense", "pallas"):
+            finals = []
+            for name in keep_local:
+                logging.debug(get_worker_log("SplitProfile", name, "start"))
+                res = _profile_one_scaffold(bam, pairs, registry, name, cfg,
+                                            null_t, freq_t, device,
+                                            gene_data, engine == "pallas")
+                logging.debug(get_worker_log("SplitProfile", name, "end"))
+                if res is not None:
+                    with _phase("tables"):
+                        finals.append(_finalize_result(res, cfg, bam.qnames))
+        else:
+            finals = _profile_scaffolds_compact(
+                bam, pairs, registry, keep_local, cfg, engine, null_t,
+                freq_t, device, gene_data, mesh, stream=stream,
+                keep_special_payload=multi_host)
+        if join_reads is not None:
+            with _phase("store"):
+                join_reads()
+        if multi_host:
+            mine = {r["name"] for r in finals}
+            with _phase("gather"):
+                finals = _gather_results(
+                    finals, keep, unpack=not primary_peer and not stream)
+            if primary_peer:
+                # this process's scaffolds are in the gather: process 0
+                # writes
+                log_checkpoint("main_profile", "profile_scaffolds", "end")
+                return None
+        if stream:
+            with _phase("store"):
+                # this process's scaffolds were written in the loop; the
+                # gathered ones now, and every view leaves the payloads
+                # (instrain_tpu/profile/pipeline.py:358-369)
+                for fin in finals if multi_host else ():
+                    for attr, writer in stream.items():
+                        view = fin.pop(attr)
+                        if fin["name"] not in mine:
+                            writer.write(fin["name"], _unpack_view(view))
+                order = [r["name"] for r in finals]
+                for writer in stream.values():
+                    writer.close(order)
+    except BaseException:
+        # no thread outlives the run, and no writer registers a
+        # half-written attribute
+        if join_reads is not None:
+            join_reads(raising=False)
+        for writer in stream.values():
+            writer.abort()
+        raise
     with _phase("store"):
-        _store_results(isdir, finals, cfg, gene_data)
+        _store_results(isdir, finals, cfg, gene_data,
+                       prewritten=frozenset(stream))
         log_checkpoint("main_profile", "profile_scaffolds", "end")
         # outputs (reference: controller.py:352-360)
         for t in ["SNVs", "scaffold_info", "linkage", "gene_info",
@@ -500,7 +632,10 @@ def _oversize(pairs, rid, L, cfg, shards: int = 1) -> bool:
 
 def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                                null_lut, freq_lut, device, gene_data,
-                               mesh: Optional[Mesh] = None) -> List[Dict]:
+                               mesh: Optional[Mesh] = None,
+                               stream: Optional[Dict] = None,
+                               keep_special_payload: bool = False
+                               ) -> List[Dict]:
     """The batch and hybrid engines, through one streaming loop
     (compact.run_site_stats_compact_stream): pileups are built as the
     engine asks for them, and each chunk's scaffolds are turned into
@@ -516,11 +651,21 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     mesh, hybrid splits each scaffold's positions over its devices and
     batch sends its chunks to them in turn, under a one-launch bound as
     many times larger; the dense path runs on `device`.
+
+    With `stream` ({attr: SpecialStreamWriter} for covT, clonT and
+    clonTR), each scaffold's three views go to a thread that writes them
+    (_start_special_writes) as soon as its tables are built, the
+    diverted dense scaffolds' too, and leave its payload unless
+    `keep_special_payload` (they must cross processes); that thread is
+    joined before this returns or raises.
     Returns the finalized payloads in `keep` order."""
     shards = mesh.size if mesh is not None else 1
     metas: Dict[int, tuple] = {}
     dense: List[tuple] = []
     finals: Dict[int, Dict] = {}
+    put_views = finish_writes = None
+    if stream:
+        put_views, finish_writes = _start_special_writes(stream)
 
     def items():
         for name in keep:
@@ -562,20 +707,33 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                     bam.qnames)
             except Exception as e:
                 _contain(name, e)
+        if put_views is not None and i in finals:
+            fin = finals[i]
+            put_views((name, {attr: fin[attr] if keep_special_payload
+                              else fin.pop(attr) for attr in stream}))
         logging.debug(get_worker_log("SplitProfile", name, "end"))
 
     kw = dict(min_cov=cfg.variant.min_cov,
               rarefied_coverage=cfg.rarefied_coverage, seed=cfg.seed)
     chunk_cells = compact_mod.CHUNK_CELLS if engine == "batch" else 0
-    for i, stats in compact_mod.run_site_stats_compact_stream(
-            items(), null_lut, freq_lut, with_dense=True, device=device,
-            max_chunk_cells=chunk_cells, phase=_phase, mesh=mesh, **kw):
-        handle(i, stats)
-    for i, pu in dense:
-        with _phase("kernels"):
-            stats = run_site_stats(pu, metas[i][2], null_lut, freq_lut,
-                                   device=device, **kw)
-        handle(i, stats)
+    try:
+        for i, stats in compact_mod.run_site_stats_compact_stream(
+                items(), null_lut, freq_lut, with_dense=True, device=device,
+                max_chunk_cells=chunk_cells, phase=_phase, mesh=mesh, **kw):
+            handle(i, stats)
+        MARKS["loop_end"] = time.perf_counter()
+        for i, pu in dense:
+            with _phase("kernels"):
+                stats = run_site_stats(pu, metas[i][2], null_lut, freq_lut,
+                                       device=device, **kw)
+            handle(i, stats)
+    except BaseException:
+        if finish_writes is not None:
+            finish_writes(raising=False)
+        raise
+    if finish_writes is not None:
+        with _phase("store"):
+            finish_writes()
     return [finals[i] for i in sorted(finals)]
 
 
@@ -638,8 +796,13 @@ def _finalize_result(r: ScaffoldProfileResult, cfg, qnames) -> Dict:
     return out
 
 
-def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data):
-    """reference: profile_utilities.gen_snv_profile (614-717)."""
+def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data,
+                   prewritten=frozenset()):
+    """The profile's results (reference: profile_utilities.gen_snv_profile,
+    614-717). `prewritten` names the special attributes (covT, clonT,
+    clonTR) that the batch engine's stream writers already wrote and
+    registered, and which the payloads no longer hold: they are skipped
+    (instrain_tpu/profile/pipeline.py:808-847)."""
     def cat(dfs):
         dfs = [d for d in dfs if d is not None and len(d)]
         return (pd.concat(dfs).reset_index(drop=True) if dfs
@@ -672,8 +835,9 @@ def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data):
                 "pandas", "Cumulative SNP on mm level")
 
     for attr, descr in _SPECIAL_DESCR.items():
-        isdir.store(attr, {r["name"]: r[attr] for r in finals},
-                    "special", descr)
+        if attr not in prewritten:
+            isdir.store(attr, {r["name"]: r[attr] for r in finals},
+                        "special", descr)
 
     if cfg.store_everything:
         # per-scaffold summed ACTG pileup counts (reference: counts_table,
@@ -731,7 +895,12 @@ def _pack_view(view):
 
 
 def _unpack_view(packed):
-    return {mm: pd.Series(v, index=i.astype(np.int64))
+    """A packed view as Series again, each array with numpy's own dtype
+    object: unpickling made new ones, which a pickle of the view would
+    write out each time, where it refers back to the shared one (so a
+    pickled covT is the one-process run's bytes)."""
+    return {mm: pd.Series(v.view(np.dtype(v.dtype.str)),
+                          index=i.astype(np.int64))
             for mm, (i, v) in packed.items()}
 
 

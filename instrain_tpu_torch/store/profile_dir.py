@@ -15,6 +15,10 @@ not installed, a special attribute is written as a pickle of the mapping
 it was given (and a warning is logged); the attribute keeps its 'special'
 type, and this package's reader loads either file (the JAX package's
 reads the pickled scaffold -> mm -> Series attributes too).
+open_special_stream writes covT, clonT or clonTR one scaffold at a time
+(SpecialStreamWriter) into the same file: each write() becomes its
+datasets at once with h5py, and without it the pickle is written at
+close().
 scaff2pair2mm2cov is given and pickled as packed masks (uint64 words, 64
 positions each, kernels/compare.py) and read back as sets of positions
 from either file.
@@ -52,6 +56,35 @@ def _h5py():
     except ImportError:
         return None
     return h5py
+
+
+def _special_h5py(name: str):
+    """h5py, for an attribute stored as hd5 where it is installed; None
+    where the attribute is pickled (with a warning if only because h5py
+    is missing)."""
+    if name not in SPECIAL_SERIES | SPECIAL_PAIRS:
+        return None
+    h5py = _h5py()
+    if h5py is None:
+        logging.warning(f"h5py is not installed: storing {name} as a "
+                        f"pickle instead of hd5")
+    return h5py
+
+
+def _dump_pickle(fileloc: str, obj) -> None:
+    with open(fileloc, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def _write_series(f, scaff: str, mm2series) -> None:
+    """One scaffold's mm -> Series as datasets "scaff::mm" of the open hd5
+    file f (instrain_tpu/store/profile_dir.py:228-240)."""
+    for mm, series in mm2series.items():
+        data = _special_pack(series)
+        # small datasets: contiguous beats chunk+filter overhead
+        comp = _H5_COMP if data.size >= 8192 else None
+        f.create_dataset(f"{scaff}::{mm}", data=data, compression=comp,
+                         track_times=False)
 
 
 def _positions(words: np.ndarray) -> np.ndarray:
@@ -127,14 +160,27 @@ class ProfileDir:
                 raise ValueError(f"unknown attribute type {typ}")
             self._register(name, stored, typ, description, adb)
 
-    def _register(self, name, stored, typ, description, adb):
-        row = pd.DataFrame({"value": [stored], "type": [typ],
-                            "description": [description]}, index=[name])
-        if name in adb.index:
-            adb.at[name, "value"] = stored
-        else:
-            adb = pd.concat([adb, row])
-        self._store_attributes(adb)
+    def _register(self, name, stored, typ, description, adb=None):
+        """Add or update one row of attributes.tsv. Takes the lock itself:
+        a SpecialStreamWriter registers from outside store()."""
+        with self._attr_lock:
+            if adb is None:
+                adb = self._get_attributes()
+            row = pd.DataFrame({"value": [stored], "type": [typ],
+                                "description": [description]}, index=[name])
+            if name in adb.index:
+                adb.at[name, "value"] = stored
+            else:
+                adb = pd.concat([adb, row])
+            self._store_attributes(adb)
+
+    def open_special_stream(self, name: str, description: str
+                            ) -> "SpecialStreamWriter":
+        """A writer of the 'special' attribute `name` (covT, clonT or
+        clonTR) one scaffold's mm -> Series mapping at a time, in the
+        format store(..., "special") writes; the attribute registers on
+        its close() (instrain_tpu/store/profile_dir.py:132-139)."""
+        return SpecialStreamWriter(self, name, description)
 
     def get(self, name: str, **kwargs):
         adb = self._get_attributes()
@@ -228,14 +274,10 @@ class ProfileDir:
     # ---------- special ----------
 
     def _store_special(self, name: str, obj) -> str:
-        h5py = _h5py()
-        if name not in SPECIAL_SERIES | SPECIAL_PAIRS or h5py is None:
-            if name in SPECIAL_SERIES | SPECIAL_PAIRS:
-                logging.warning(f"h5py is not installed: storing {name} "
-                                f"as a pickle instead of hd5")
+        h5py = _special_h5py(name)
+        if h5py is None:
             fileloc = self._fileloc(name) + ".pickle"
-            with open(fileloc, "wb") as f:
-                pickle.dump(obj, f)
+            _dump_pickle(fileloc, obj)
             return fileloc
         fileloc = self._fileloc(name) + ".hd5"
         with h5py.File(fileloc, "w") as f:
@@ -249,12 +291,7 @@ class ProfileDir:
                                 data=_positions(words).astype("float64"),
                                 compression=_H5_COMP)
                     continue
-                for mm, series in inner.items():
-                    data = _special_pack(series)
-                    # small datasets: contiguous beats chunk+filter overhead
-                    comp = _H5_COMP if data.size >= 8192 else None
-                    f.create_dataset(f"{scaff}::{mm}", data=data,
-                                     compression=comp, track_times=False)
+                _write_series(f, scaff, inner)
         return fileloc
 
     def _load_special(self, location: str, name: str, scaffolds=()):
@@ -343,3 +380,62 @@ class ProfileDir:
 
     def _fileloc(self, name: str) -> str:
         return os.path.join(self.get_location("raw_data"), name)
+
+
+class SpecialStreamWriter:
+    """Writes a 'special' attribute (covT, clonT, clonTR) one scaffold at a
+    time, so that the batch engine's stores overlap its device loop
+    (instrain_tpu/store/profile_dir.py:342-380). The file is the one
+    store(..., "special") writes for the same mapping: with h5py, the
+    datasets of each write() at once (one per "scaffold::mm", created in
+    the order of the writes); without it, write() keeps the views and
+    close() pickles the mapping. Only close() registers the attribute;
+    abort() closes the file and registers nothing. write() may run on
+    another thread than close() and abort(), never at the same time."""
+
+    def __init__(self, isdir: ProfileDir, name: str, description: str):
+        self._isdir = isdir
+        self._name = name
+        self._description = description
+        h5py = _special_h5py(name)
+        self._views = {} if h5py is None else None
+        self._loc = isdir._fileloc(name) + (".pickle" if h5py is None
+                                            else ".hd5")
+        self._f = None if h5py is None else h5py.File(self._loc, "w")
+        self._open = True
+
+    def write(self, scaffold: str, mm2series: dict):
+        if not self._open:
+            raise ValueError(f"{self._name}: the writer is closed")
+        if self._f is None:
+            self._views[scaffold] = mm2series
+        else:
+            _write_series(self._f, scaffold, mm2series)
+
+    def close(self, order=None):
+        """Finish the file and register the attribute. The pickle holds
+        the scaffolds in `order` (those of them written; then any others
+        in the order they were written), so that it is the bytes the
+        serial store writes for the mapping in that order."""
+        if not self._open:
+            return
+        self._shut()
+        if self._views is not None:
+            views, self._views = self._views, None
+            names = [s for s in order or () if s in views]
+            first = set(names)
+            names += [s for s in views if s not in first]
+            _dump_pickle(self._loc, {s: views[s] for s in names})
+        self._isdir._register(self._name, self._loc, "special",
+                              self._description)
+
+    def abort(self):
+        if self._open:
+            self._shut()
+            self._views = None
+
+    def _shut(self):
+        self._open = False
+        if self._f is not None:
+            self._f.close()
+            self._f = None

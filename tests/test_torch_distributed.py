@@ -6,6 +6,10 @@ ranged path (a .bai, paired_only: each process decodes only its
 scaffolds) and on the replicated one (no .bai, or non_discordant), also
 where reads have pairs on two scaffolds; under distributed_store "all"
 both processes write it; a zero-pair run writes only from process 0.
+Under --engine batch the writing processes stream covT/clonT/clonTR
+(their own scaffolds in the loop, the gathered ones after it): the hd5
+files hold the one-process run's datasets (created in another order),
+and without h5py the pickles are its bytes.
 Also: the scaffold assignment equals the JAX package's, the one-process
 pass-throughs, the histogram median, and each scaffold's pair order,
 which does not depend on the decode's scope.
@@ -34,6 +38,7 @@ from instrain_tpu_torch.config import ReadFilterConfig
 from instrain_tpu_torch.io.bam import decode_bam
 from instrain_tpu_torch.parallel import distributed as D
 from instrain_tpu_torch.profile import filter_reads as F
+from instrain_tpu_torch.store import profile_dir as PD
 from instrain_tpu_torch.synth import synth, synth_shared_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,9 +54,12 @@ logging.basicConfig(level=logging.INFO, format="%(message)s")
 from instrain_tpu_torch.cli import build_parser, profile_config_from_args
 from instrain_tpu_torch.parallel import distributed
 from instrain_tpu_torch.profile.pipeline import profile
+from instrain_tpu_torch.store import profile_dir
 assert distributed.init_distributed()
 rank = distributed.process_index()
+h5py_of = profile_dir._h5py
 for job in json.loads(sys.argv[1]):
+    profile_dir._h5py = (lambda: None) if job.get("no_h5py") else h5py_of
     cfg = profile_config_from_args(build_parser().parse_args(
         ["profile", job["bam"], job["fasta"], "-o",
          job["out"].format(rank=rank), "--device", "cpu"] + job["flags"]))
@@ -130,11 +138,22 @@ def one_process(bam, fasta, out, extra=()):
     return out
 
 
-def assert_same_profile(a, b):
+def hd5_content(path):
+    """{dataset: (dtype, shape, compression, values)} of an hd5 file."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        return {k: (f[k].dtype, f[k].shape, f[k].compression,
+                    f[k][()].tobytes()) for k in f.keys()}
+
+
+def assert_same_profile(a, b, hd5_by_content=False):
     """Every output TSV byte for byte, and every stored table: the text
     files and pickles byte for byte, the gzipped tables decompressed, the
-    special views (hd5 or pickle) byte for byte; the attribute registry
-    with each directory's own path taken out."""
+    special views (hd5 or pickle) byte for byte, or with hd5_by_content
+    the hd5 files dataset by dataset (name, dtype, shape, compression and
+    value bytes: the batch engine's streamed files create them in another
+    order); the attribute registry with each directory's own path taken
+    out."""
     for t in TABLES:
         texts = []
         for d in (a, b):
@@ -145,6 +164,10 @@ def assert_same_profile(a, b):
     ra, rb = os.path.join(a, "raw_data"), os.path.join(b, "raw_data")
     assert sorted(os.listdir(ra)) == sorted(os.listdir(rb))
     for name in sorted(os.listdir(ra)):
+        if hd5_by_content and name.endswith(".hd5"):
+            assert hd5_content(os.path.join(ra, name)) == \
+                hd5_content(os.path.join(rb, name)), name
+            continue
         blobs = []
         for d, r in ((a, ra), (b, rb)):
             path = os.path.join(r, name)
@@ -279,42 +302,59 @@ def test_two_processes_through_torchrun(data, tmp_path):
     assert sum(counts) == 5 and min(counts) > 0
 
 
-def test_two_processes_every_path(data, tmp_path):
+def test_two_processes_every_path(data, tmp_path, monkeypatch):
     """One pair of processes runs, in turn: the ranged path with
     distributed_store "all" (both write a whole directory), the
     replicated paths (the BAM without its .bai; non_discordant), the BAM
-    with reads on two scaffolds, and a run where no pair passes (it
-    fails on both, and only process 0 writes). Each directory equals the
-    one-process run's byte for byte."""
+    with reads on two scaffolds, the batch engine's streamed stores with
+    distributed_store "all" and, without h5py, with "primary", and a run
+    where no pair passes (it fails on both, and only process 0 writes).
+    Each directory equals the one-process run's byte for byte (the batch
+    runs' hd5 files dataset by dataset)."""
+    batch = ["--engine", "batch"]
     runs = {
         "all": (data["bam"], data["fasta"], "all", []),
         "nobai": (data["nobai"], data["fasta"], "primary", []),
         "nondisc": (data["bam"], data["fasta"], "primary",
                     ["--pairing_filter", "non_discordant"]),
         "shared": (data["sbam"], data["sfasta"], "all", []),
+        "batch": (data["bam"], data["fasta"], "all", batch),
+        "batch_pickle": (data["bam"], data["fasta"], "primary", batch),
         "zero": (data["bam"], data["fasta"], "primary",
                  ["--min_read_ani", "1.0"]),
     }
     jobs = [dict(bam=b, fasta=f, out=str(tmp_path / f"{k}_{{rank}}.IS"),
-                 store=store, flags=FLAGS + extra)
+                 store=store, flags=FLAGS + extra,
+                 no_h5py=k == "batch_pickle")
             for k, (b, f, store, extra) in runs.items()]
     del runs["zero"]
     outs = run_workers(jobs, tmp_path, "every")
     for rank, text in enumerate(outs):
-        assert text.count(f"JOB_OK {rank}") == 4, text[-3000:]
+        assert text.count(f"JOB_OK {rank}") == 6, text[-3000:]
         assert f"JOB_RAISED {rank} No paired reads remain" in text
     for k, (bam, fasta, store, extra) in runs.items():
-        one = one_process(bam, fasta, str(tmp_path / f"{k}_one.IS"), extra)
+        with monkeypatch.context() as m:
+            if k == "batch_pickle":
+                m.setattr(PD, "_h5py", lambda: None)
+            one = one_process(bam, fasta, str(tmp_path / f"{k}_one.IS"),
+                              extra)
         writers = (0, 1) if store == "all" else (0,)
         for rank in (0, 1):
             d = str(tmp_path / f"{k}_{rank}.IS")
             if rank in writers:
-                assert_same_profile(one, d)
+                assert_same_profile(one, d, hd5_by_content=k == "batch")
             else:
                 assert not os.path.exists(d), (k, rank)
+        if k.startswith("batch"):
+            specials = sorted(f for f in os.listdir(
+                os.path.join(one, "raw_data")) if f.startswith(
+                    ("covT", "clonT", "clonTR")))
+            ext = ".pickle" if k == "batch_pickle" else ".hd5"
+            assert specials == [f"clonT{ext}", f"clonTR{ext}",
+                                f"covT{ext}"], specials
         log = _log(str(tmp_path / f"{k}_0.IS"))
         assert "multi-host: process 0 of 2 owns" in log
-        ranged = k in ("all", "shared")
+        ranged = k in ("all", "shared", "batch", "batch_pickle")
         assert ("sharded decode: host 0" in log) == ranged, k
     assert os.path.exists(tmp_path / "zero_0.IS" / "raw_data" /
                           "mapping_info.csv.gz")

@@ -77,3 +77,98 @@ def test_zlib_shim_decoder_matches(synth_bam, monkeypatch):
     got = port_bam.decode_bam(bam, baq=False)
     assert got._handle_obj.lib is shim
     _assert_same_decode(ref, got)
+
+
+def test_codes_to_str_and_splits_match_jax(synth_bam):
+    """fasta.codes_to_str and ScaffoldRegistry.splits_of against the JAX
+    package's (tests/test_io.py:31-58, on the synth FASTA), with codes
+    past 4 written as N."""
+    from instrain_tpu.io import fasta as jax_fasta
+    from instrain_tpu_torch.io import fasta as port_fasta
+    fa, _, _ = synth_bam
+    for window in (5000, 1234, 10000):
+        j = jax_fasta.ScaffoldRegistry.from_fasta(fa, window_length=window)
+        p = port_fasta.ScaffoldRegistry.from_fasta(fa, window_length=window)
+        assert p.names == j.names
+        for name in p.names:
+            assert p.splits_of(name) == j.splits_of(name)
+            assert p.splits_of(name)[-1][1] == p.length_of(name) - 1
+            codes = p.codes[name]
+            assert port_fasta.codes_to_str(codes) == \
+                jax_fasta.codes_to_str(codes)
+            assert port_fasta.codes_to_str(codes[:10]) == \
+                port_fasta.read_fasta(fa)[name][:10].tobytes().decode()
+    codes = np.array([0, 1, 2, 3, 4, 5, 255, 0], np.uint8)
+    assert port_fasta.codes_to_str(codes) == \
+        jax_fasta.codes_to_str(codes) == "ACTGNNNA"
+
+
+def test_records_of_ref_matches_jax(tmp_path):
+    """BamArrays.records_of_ref over a whole and a ranged decode of a
+    5-scaffold synth BAM (tests/test_bai.py:40-60), against the JAX
+    package's decoder."""
+    _, bam, _ = synth(str(tmp_path), S=5, L=4000, COV=20, seed=3)
+    for scaffolds in (None, ["scaf_0", "scaf_3"]):
+        j = jax_bam.decode_bam(bam, scaffolds=scaffolds)
+        p = port_bam.decode_bam(bam, scaffolds=scaffolds)
+        assert p.ranged == j.ranged == (scaffolds is not None)
+        for name in scaffolds or p.ref_names:
+            rid = p.name_to_ref_id[name]
+            got, want = p.records_of_ref(rid), j.records_of_ref(rid)
+            assert len(got) > 0 and np.array_equal(got, want), name
+            assert (p.ref_id[got] == rid).all()
+
+
+def _baq_cases():
+    """(ref, pos, cigar, read, qual): tests/test_io.py:73-87's
+    perfect-match read, then mismatches, an insertion, a deletion, soft
+    clips, low qualities, a read off the reference's end and a spliced
+    one (returned unchanged)."""
+    rng = np.random.default_rng(0)
+    ref = rng.integers(0, 4, 500).astype(np.uint8)
+    M, I, D, N, S = 0, 1, 2, 3, 4
+
+    def cig(*ops):
+        return np.array([(n << 4) | op for n, op in ops], np.uint32)
+
+    read = ref[100:250].copy()
+    cases = [(ref, 100, cig((150, M)), read, np.full(150, 38, np.uint8))]
+    mism = read.copy()
+    mism[[10, 11, 60, 149]] = (mism[[10, 11, 60, 149]] + 1) % 4
+    cases.append((ref, 100, cig((150, M)), mism,
+                  rng.integers(2, 41, 150).astype(np.uint8)))
+    ins = np.concatenate([ref[200:260], [1, 2, 3], ref[260:320]])
+    cases.append((ref, 200, cig((60, M), (3, I), (60, M)), ins,
+                  np.full(123, 30, np.uint8)))
+    dele = np.concatenate([ref[300:350], ref[355:420]])
+    cases.append((ref, 300, cig((50, M), (5, D), (65, M)), dele,
+                  rng.integers(10, 41, 115).astype(np.uint8)))
+    clip = np.concatenate([[0, 0, 0, 0, 0], ref[20:120], [3, 3]])
+    cases.append((ref, 20, cig((5, S), (100, M), (2, S)), clip,
+                  np.full(107, 35, np.uint8)))
+    cases.append((ref, 450, cig((50, M)), ref[450:500].copy(),
+                  np.full(50, 3, np.uint8)))
+    cases.append((ref, 480, cig((40, M)), rng.integers(0, 4, 40).astype(
+        np.uint8), np.full(40, 40, np.uint8)))
+    cases.append((ref, 10, cig((30, M), (100, N), (30, M)),
+                  rng.integers(0, 4, 60).astype(np.uint8),
+                  np.full(60, 37, np.uint8)))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_baq_one_matches_jax(case):
+    """io.bam.baq_one, through the port's own build of native/baq.cc,
+    equals the JAX package's on every case; it never raises a quality,
+    keeps most of a matching read's high, and leaves a spliced read's
+    qualities as they were."""
+    ref, pos, cigar, read, qual = _baq_cases()[case]
+    got = port_bam.baq_one(ref, pos, cigar, read, qual)
+    want = jax_bam.baq_one(ref, pos, cigar, read, qual)
+    assert got.dtype == want.dtype == np.uint8
+    assert np.array_equal(got, want)
+    assert got.shape == qual.shape and (got <= qual).all()
+    if case == 0:
+        assert (got >= 30).mean() > 0.9
+    if case == 7:
+        assert np.array_equal(got, qual)
