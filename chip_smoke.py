@@ -56,9 +56,9 @@ Phases (each prints its own lines; the first failure exits non-zero):
   4. end to end: `instrain_tpu_torch profile -g` through the CLI on a
      small synthetic BAM with the genes of synth_genes, --engine dense,
      hybrid and batch, each on --device cuda and --device cpu (each pair's
-     TSVs, gene_info too, byte-identical, and so are the outputs of
-     parse_annotations over each, with an annotation CSV the smoke
-     writes); then the
+     TSVs, gene_info too, byte-identical, the stored covT, clonT and
+     clonTR bit for bit, and the outputs of parse_annotations over each,
+     with an annotation CSV the smoke writes); then the
      main paths through --engine auto, each with every launch count reset
      just before it and read just after: the synthetic metagenome (128 x
      40 kb at 30x), which runs the batch engine, a one-scaffold isolate
@@ -68,7 +68,13 @@ Phases (each prints its own lines; the first failure exits non-zero):
      the scaffolds past the linkage bound, one copy to the card and one
      back for each device linkage call, and the absence of scaffold
      failures, and the summed launches against the recorded ones (5 of
-     each batch kernel, 1 of ld); the metagenome's batch run overlaps its stores
+     each batch kernel and of K8, densify_sparse, whose inputs, the
+     sparse count wire of each run's largest chunk, are kept; 1 of ld);
+     then the int16-overflow input (synth_mixed: 4 x 5 kb at 40x and 1 kb
+     at 30,000x) through --engine batch and hybrid on the card and the
+     CPU (TSVs byte for byte, stored views bit for bit, the deep
+     scaffold's int32 counts in a dense chunk of their own, the others
+     over the wire); the metagenome's batch run overlaps its stores
      with the device loop (the read results on a thread of their own,
      started before the loop's last chunk landed; covT/clonT/clonTR
      through stream writers): its main-thread phases, summed against its
@@ -83,8 +89,10 @@ Phases (each prints its own lines; the first failure exits non-zero):
      --engine hybrid (TSVs and gene_info byte-identical to the batch
      run; its serially stored covT, clonT, clonTR, Rdic and mapping_info
      equal to the batch run's streamed ones through ProfileDir.get), both
-     engines' device copies under torch.profiler (batch: the recorded 11
-     H2D and 6 D2H copies, and with -g and the plots the same), the deep
+     engines' device copies under torch.profiler (batch: the recorded 8
+     H2D and 6 D2H copies, and with -g and the plots the same; per chunk
+     its H2D and D2H bytes and ms, the H2D below a dense int32 chunk's
+     268,435,456 bytes), the deep
      input on --device cpu with the device linkage engine forced (TSVs byte-identical), and the
      metagenome and the isolate through --engine dense (launch counts
      reset and read around each run: site_stats and clonR once per 1 Mb
@@ -109,8 +117,10 @@ Phases (each prints its own lines; the first failure exits non-zero):
      pair, mm level), no scaffold failure, every pooling decode ranged
      (the pooling phase's seconds printed), and the device run drawing
      the dendrograms (where matplotlib imports; else the failure logged).
-     The batch engine's profiled run also reports, per chunk, its H2D
-     bytes and time beside its kernels' (from the trace). Then 66 tiny
+     Then K8 against its plain version on the card, bit for bit, at the
+     wires kept from the metagenome's, the isolate's, the deep input's and
+     the overflow input's runs, its device time (L2 flushed) and bound at
+     each. Then 66 tiny
      samples (2 x 2 kb, 5-15x) profiled on the card and compared through
      the overlap kernel (one launch, counted around the run) and the host
      engine: the comparison table byte for byte;
@@ -128,8 +138,9 @@ Phases (each prints its own lines; the first failure exits non-zero):
      the gathers; torch.sort), each after an L2 flush, and the bound.
 The last three lines are the card's name and power limit, the kernels'
 JSON record and the device record.
-The kernels' record takes select_rows and masked_median at the
-metagenome's chunk, the other kernels at the shapes their phases time;
+The kernels' record takes select_rows, masked_median and densify_sparse
+at the metagenome's chunk, the other kernels at the shapes their phases
+time;
 ld's row has its device time beside its wrapper time at the deep input,
 and its times and bound at 50,000 x 8 x 4,000,000.
 Imports nothing of JAX. Needs no network; writes only under .smoke/.
@@ -141,6 +152,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
@@ -846,6 +858,75 @@ class CompactCapture:
     def __exit__(self, *exc):
         self.mod.compact_from_full = self.saved
         return False
+
+
+class WireCapture:
+    """While open, clones the sparse count wire that
+    cuda_compact.site_stats_compact_sparse hands K8 (densify_sparse): for
+    each run (its name set in .run) that of its largest chunk, as
+    .inputs[name] = (wire, M, Ltot)."""
+
+    def __init__(self):
+        from instrain_tpu_torch.kernels import cuda_compact
+        self.mod, self.run = cuda_compact, None
+        self.inputs, self.cells = {}, {}
+
+    def __enter__(self):
+        self.saved = self.mod.site_stats_compact_sparse
+
+        def keep(wire, ref, null_lut, freq_lut, seg, M, **kw):
+            if M * seg.L > self.cells.get(self.run, 0):
+                self.cells[self.run] = M * seg.L
+                self.inputs[self.run] = (wire._replace(**{
+                    k: getattr(wire, k).clone() for k in (
+                        "table", "corr_idx", "corr_val", "deltas",
+                        "vals")}), M, seg.L)
+            return self.saved(wire, ref, null_lut, freq_lut, seg, M, **kw)
+
+        self.mod.site_stats_compact_sparse = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.site_stats_compact_sparse = self.saved
+        return False
+
+
+def densify_bound(wire, M, Ltot):
+    """K8's bound: its wire read once and its [M, 4, Ltot] int32 counts
+    written once."""
+    return bound(nbytes(wire) + 16 * M * Ltot)
+
+
+def phase_densify(torch, card, captured):
+    """K8 against its plain version on the card, bit for bit, at the
+    chunk wires the main paths and the int16-overflow input gave it; its
+    device time with the L2 flushed (the card kept busy while the host
+    enqueues), the plain version's, and its bound. Returns (max abs err,
+    {run: (ms, plain_ms, bound_ms, bound_by)})."""
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import sitestats as S
+    err, out = 0.0, {}
+    for run, (wire, M, Ltot) in captured.items():
+        got = CC.densify_sparse(wire, M, Ltot)
+        want = S.densify_sparse_plain(wire, M, Ltot)
+        torch.cuda.synchronize()
+        err = max(err, compare_exact({"counts": want}, {"counts": got},
+                                     f"densify_sparse, {run}"))
+        ms = cold_ms(torch, lambda: CC.densify_sparse(wire, M, Ltot), 20,
+                     busy=True)
+        plain_ms = cuda_ms(torch, lambda: S.densify_sparse_plain(
+            wire, M, Ltot), 3)
+        b = densify_bound(wire, M, Ltot)
+        out[run] = (ms, plain_ms) + b
+        V, C = wire.vals.numel(), wire.corr_idx.numel()
+        log("densify", f"{run}: chunk of {wire.S} scaffold(s), M={M}, "
+                       f"{Ltot} positions, {V} entries "
+                       f"({V / (4 * M * Ltot):.4f} of the cells), {C} "
+                       f"corrections == plain bitwise; "
+                       f"on {card} device {ms:.4f} ms (L2 flushed) vs plain "
+                       f"{plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, "
+                       f"{nbytes(wire) + 16 * M * Ltot} bytes)")
+    return err, out
 
 
 def site_stats_chunk(torch, M, lengths, seed):
@@ -1595,7 +1676,8 @@ def chunk_copies(trace):
     """The device work of a traced run, per stream in time order, cut into
     groups that each start at a host-to-device copy after other work: a
     chunk of the batch engine is its H2D copies and then its kernels on
-    one stream. [(H2D bytes, H2D ms, kernels, kernel ms, D2H ms)]."""
+    one stream. [(H2D bytes, H2D ms, kernels, kernel ms, D2H bytes, D2H
+    ms)]."""
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     streams = {}
@@ -1607,17 +1689,19 @@ def chunk_copies(trace):
         cur = None
         for e in sorted(evs, key=lambda e: e["ts"]):
             h2d = e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
-            if h2d and (cur is None or cur[2] or cur[4]):
-                cur = [0, 0.0, 0, 0.0, 0.0]
+            if h2d and (cur is None or cur[2] or cur[5]):
+                cur = [0, 0.0, 0, 0.0, 0, 0.0]
                 groups.append(cur)
             if cur is None:
                 continue
             ms = e.get("dur", 0.0) / 1e3
+            n = int(e.get("args", {}).get("bytes", 0))
             if h2d:
-                cur[0] += int(e.get("args", {}).get("bytes", 0))
+                cur[0] += n
                 cur[1] += ms
             elif e["cat"] == "gpu_memcpy":
-                cur[4] += ms
+                cur[4] += n
+                cur[5] += ms
             else:
                 cur[2] += 1
                 cur[3] += ms
@@ -1632,7 +1716,7 @@ def phase_end_to_end(torch):
     from instrain_tpu_torch.profile import compact as PC
     from instrain_tpu_torch.profile import linkage as PL
     from instrain_tpu_torch.store.profile_dir import ProfileDir
-    from instrain_tpu_torch.synth import synth, synth_genes
+    from instrain_tpu_torch.synth import synth, synth_genes, synth_mixed
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -1660,6 +1744,10 @@ def phase_end_to_end(torch):
         check(tsvs(outs["cuda"], GENE_TABLES) ==
               tsvs(outs["cpu"], GENE_TABLES),
               f"small input, --engine {engine}: TSVs differ GPU vs CPU")
+        # the stored views bit for bit: hybrid and batch rebuild clon on
+        # the host from the int16 counts (clon_cum16), dense takes the
+        # card's
+        same_stores(outs["cuda"], outs["cpu"])
         types = check_gene_info(outs["cuda"], small_genes)
         if not os.path.exists(anno):
             genes = read_table(outs["cuda"], "gene_info")["gene"]
@@ -1679,7 +1767,8 @@ def phase_end_to_end(torch):
               f"differ GPU vs CPU")
         log("e2e", f"small input (4 x 5 kb, 60x) with -g, --engine "
                    f"{engine}: GPU TSVs (gene_info too) byte-identical to "
-                   f"the --device cpu run; SNV mutation types {types}; "
+                   f"the --device cpu run, stored covT, clonT and clonTR "
+                   f"bit for bit; SNV mutation types {types}; "
                    f"parse_annotations' {len(pa)} files byte-identical")
 
     cases = MAIN_CASES
@@ -1741,20 +1830,20 @@ def phase_end_to_end(torch):
         return ld_args[-1]
 
     five = ("site_stats", "clonR", "select_rows", "mm_aggregates",
-            "masked_median")
+            "masked_median", "densify_sparse")
     outs, launches = {}, dict.fromkeys(five + ("ld",), 0)
     case_launches = {}
     PL.resolve_linkage_engine = record
     PL._device_ld_args = keep_ld_args
-    capture = CompactCapture()
+    capture, wires = CompactCapture(), WireCapture()
     try:
         for name, S, _, _ in cases:
-            capture.run = name
+            capture.run = wires.run = name
             linkage_choice.clear()
             C.reset_launch_counts()
             CC.reset_launch_counts()
             CL.reset_launch_counts()
-            with capture, LinkageCopies(torch) as copies:
+            with capture, wires, LinkageCopies(torch) as copies:
                 outs[name] = run(name, "auto")
             got = {**C.launch_counts(), **CC.launch_counts(),
                    **CL.launch_counts()}
@@ -1815,10 +1904,45 @@ def phase_end_to_end(torch):
     check(linkage_choice and linkage_choice[-1][1] == "device",
           f"the deep input's linkage ran on the host engine "
           f"({linkage_choice[-1:]})")
+    check(sorted(wires.inputs) == sorted(c[0] for c in cases),
+          f"densify_sparse's inputs captured for {sorted(wires.inputs)}")
     log("e2e", f"launches in the main paths, summed: {launches}")
     want = {**dict.fromkeys(five, 5), "ld": 1}
     check(launches == want, f"main paths' launches {launches}, recorded "
                             f"{want}")
+
+    # the int16-overflow input (synth_mixed: four 5 kb scaffolds at 40x and
+    # one of 1 kb at 30,000x, whose mm level 0 exceeds int16): batch and
+    # hybrid on the card against the CPU, TSVs byte for byte and the stored
+    # views bit for bit; the deep scaffold's counts go dense (int32, in a
+    # chunk of their own), the others' over the sparse wire (K8)
+    mixed = os.path.join(WORK, "mixed")
+    os.makedirs(mixed)
+    fasta_m, bam_m, _ = synth_mixed(mixed)
+    for engine in ("batch", "hybrid"):
+        o = {d: os.path.join(mixed, f"{engine}_{d}.IS")
+             for d in ("cuda", "cpu")}
+        reset_launches()
+        wires.run = "overflow"
+        with wires if engine == "batch" else nullcontext():
+            run_profile(bam_m, fasta_m, o["cuda"], engine)
+        got = kernel_launches()
+        run_profile(bam_m, fasta_m, o["cpu"], engine, "cpu")
+        check(tsvs(o["cuda"]) == tsvs(o["cpu"]),
+              f"overflow input, --engine {engine}: TSVs differ GPU vs CPU")
+        same_stores(o["cuda"], o["cpu"])
+        n_cov = len(ProfileDir(o["cuda"]).get("covT"))
+        sparse = {"batch": 2, "hybrid": 4}[engine]
+        check(n_cov == 5 and got["densify_sparse"] == sparse and
+              got["site_stats"] == sparse + 1,
+              f"overflow input, --engine {engine}: {n_cov} scaffolds, "
+              f"launches {got}: expected {sparse} over the wire and one "
+              f"dense")
+        log("e2e", f"overflow input (4 x 5 kb at 40x, 1 kb at 30,000x), "
+                   f"--engine {engine}: GPU TSVs byte-identical to the "
+                   f"--device cpu run, stored covT, clonT and clonTR bit "
+                   f"for bit; launches {got} ({sparse} chunk(s) over the "
+                   f"sparse wire, the deep scaffold's int32 counts dense)")
 
     # the metagenome through --engine auto (batch) with -g and the plots:
     # the genes of a chunk are profiled on the host while the next chunk
@@ -1885,15 +2009,21 @@ def phase_end_to_end(torch):
                    f"{got['DtoH'][1] + got['HtoD'][1] + got['kernels'][1]:.3f}"
                    f" ms")
         if tag == "batch":
-            # the measurement that decides whether the sparse count wire
-            # (K8) is worth porting: H2D against kernel time per chunk
-            for i, (b, h_ms, n_k, k_ms, d_ms) in enumerate(
-                    chunk_copies(trace)):
+            # each chunk's copies beside its kernels: the sparse count
+            # wire in (K8), against the 268,435,456 bytes of a dense int32
+            # chunk of 2^24 cells; its outputs back without the dense clon
+            groups = chunk_copies(trace)
+            for i, (b, h_ms, n_k, k_ms, db, d_ms) in enumerate(groups):
                 log("e2e", f"metagenome --engine batch, stream group {i}: "
                            f"H2D {b} bytes in {h_ms:.4f} ms "
                            f"({b / max(h_ms, 1e-9) / 1e6:.1f} GB/s), "
-                           f"{n_k} kernels {k_ms:.4f} ms, D2H {d_ms:.4f} "
-                           f"ms")
+                           f"{n_k} kernels {k_ms:.4f} ms, D2H {db} bytes "
+                           f"in {d_ms:.4f} ms")
+            dense_bytes = 16 * PC.CHUNK_CELLS
+            big = max(g[0] for g in groups)
+            check(0 < big < dense_bytes,
+                  f"metagenome --engine batch: a chunk's H2D copies moved "
+                  f"{big} bytes, a dense int32 chunk {dense_bytes}")
 
     if traced["batch"] and traced["batch -g"]:
         copies = {k: [traced[t][k][0] for t in ("batch", "batch -g")]
@@ -1901,9 +2031,9 @@ def phase_end_to_end(torch):
         check(all(a == b for a, b in copies.values()),
               f"metagenome --engine batch: device copies (without -g and "
               f"plots, with both) {copies}")
-        check(copies == {"HtoD": [11, 11], "DtoH": [6, 6]},
+        check(copies == {"HtoD": [8, 8], "DtoH": [6, 6]},
               f"metagenome --engine batch: device copies {copies}, recorded "
-              f"11 H2D and 6 D2H")
+              f"8 H2D and 6 D2H")
         log("e2e", f"metagenome --engine batch: the same device copies "
                    f"with -g and plots as without under torch.profiler "
                    f"{copies}")
@@ -2007,7 +2137,7 @@ def phase_end_to_end(torch):
              "isolate_tsvs": auto_tsvs["isolate"],
              "metagenome_launches": case_launches["metagenome"],
              "isolate_launches": case_launches["isolate"]}
-    return launches, ld_args[-1], captured, paths
+    return launches, ld_args[-1], captured, wires.inputs, paths
 
 
 # ---------------------------------------------------------------- host
@@ -2728,9 +2858,11 @@ def phase_mesh(torch, paths):
                   f"{name}: the run was not sharded")
         want = dict(paths[f"{name}_launches"])
         if name == "isolate":
-            # one scaffold: two shards of each kernel, one median
+            # one scaffold: two shards of each kernel, one median; the
+            # position split sends int32 counts, so no densify
             want.update({k: 2 for k in ("site_stats", "clonR",
                                         "select_rows", "mm_aggregates")})
+            want["densify_sparse"] = 0
         check(got == want, f"{name} over two shards: launches {got}, "
                            f"expected {want}")
         log("mesh", f"{name} over {mesh} ({plan}): wall {wall:.3f} s, TSVs "
@@ -2922,8 +3054,10 @@ def main():
     errs["ld"], ld_at_d = phase_linkage(torch, card, rates)
     k7 = phase_compare_kernel(torch, card)
     phase_compare_crossover(torch, card)
-    launches, ld_args, captured, paths = phase_end_to_end(torch)
+    launches, ld_args, captured, wires, paths = phase_end_to_end(torch)
     launches["overlap_counts"] = phase_compare_e2e(torch)
+    errs["densify_sparse"], k8 = phase_densify(torch, card, wires)
+    del wires
     phase_compare_past64(torch)
     phase_host_commands(torch, paths)
     mesh_err, clonr_base = phase_mesh(torch, paths)
@@ -3012,6 +3146,18 @@ def main():
              "launches": launches[name], "max_abs_err": errs[name],
              **{k: main_shape[name][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    # K8 at the metagenome's largest chunk wire, as its batch run gave it
+    # (no single PyTorch call computes it: library_ms null)
+    kernels.append(
+        {"name": "densify_sparse", "route": "cuda",
+         "source": "instrain_tpu_torch/csrc/densify.cu",
+         "replaces": "instrain_tpu/kernels/sitestats.py:665",
+         "launches": launches["densify_sparse"],
+         "max_abs_err": errs["densify_sparse"],
+         **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                    k8["metagenome"])), "library_ms": None,
+         "at": {run: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                              v)) for run, v in k8.items()}})
     main_shape = k7["study"]     # the compare run's group: 8 samples
     kernels.append(
         {"name": "overlap_counts", "route": "cuda",

@@ -3,8 +3,9 @@ Builds the port's native libraries at first use, into `_build/` inside
 the package (listed in .gitignore):
 
   - the BAM decoder, from the repository's native/bam.cc and baq.cc, with
-    g++ (native/Makefile's flags without -march=native, so the library
-    runs on whichever host builds it);
+    g++ (native/Makefile's flags with -mfma in place of -march=native on
+    x86-64, so the library runs on any host with FMA and contracts the
+    float products as the JAX package's build does);
   - the CUDA kernels, from csrc/*.cu, with nvcc for sm_90a (Hopper).
 
 Each library's file name carries a hash of its sources and flags, so an
@@ -20,6 +21,7 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from typing import Callable, Dict, List, Optional, Tuple
@@ -146,6 +148,11 @@ def _native_io_spec(use_libdeflate: Optional[bool] = None) -> Spec:
         headers.append(os.path.join(shim, "libdeflate.h"))
         extra, libs = [f"-I{shim}"], ["-lz"]
     cxx = os.environ.get("CXX", "g++")
+    # g++ contracts a * b + c into one fused multiply-add where the target
+    # has FMA, as native/Makefile's -march=native build does: the f32
+    # clonality of bd_clon_cum16 then rounds as the JAX package's does
+    if platform.machine() in ("x86_64", "AMD64"):
+        extra = ["-mfma"] + extra
 
     def command(out: str) -> Stages:
         return [[[cxx, "-O3", "-fPIC", "-std=c++17", "-Wall"] + extra +

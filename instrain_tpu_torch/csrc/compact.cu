@@ -119,13 +119,17 @@
 
 #include <atomic>
 
+#include "scan.cuh"
 #include "segments.cuh"
 
 namespace {
 
+using instrain::block_exclusive_scan;
 using instrain::Segments;
 using instrain::TilePos;
 using instrain::tile_position;
+using instrain::warp_inclusive_scan;
+using instrain::warp_sum;
 
 constexpr int kThreads = instrain::kTile;     // C1 and C2: positions/block
 constexpr int kWarps = kThreads / 32;
@@ -147,45 +151,6 @@ static_assert(kAggThreads == instrain::kTile &&
               kAggThreads * kAggPer == instrain::kBigTile,
               "C2's blocks are the table's tiles or big tiles");
 constexpr int8_t kSNS = 0, kConSNV = 2, kPopSNV = 3;
-
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += n;
-    }
-    return v;
-}
-
-// Exclusive scan of one int per thread over a block of NT threads;
-// *total receives the block's sum. smem holds NT / 32 + 1 ints.
-template <int NT>
-__device__ int block_exclusive_scan(int v, int* total, int* smem) {
-    constexpr int W = NT / 32;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int inc = warp_inclusive_scan(v);
-    if (lane == 31) smem[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-        const int w = lane < W ? smem[lane] : 0;
-        const int winc = warp_inclusive_scan(w);
-        if (lane < W) smem[lane] = winc - w;
-        if (lane == W - 1) smem[W] = winc;
-    }
-    __syncthreads();
-    const int res = smem[warp] + inc - v;
-    *total = smem[W];
-    __syncthreads();                      // smem is reused by the caller
-    return res;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
 
 // ------------------------------------------------------------------ C1
 

@@ -77,6 +77,24 @@ def _bind(lib):
     lib.bd_build_counts.argtypes = [
         ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32), ct.c_int32,
         ct.c_int64, ct.POINTER(ct.c_int32), ct.c_uint8]
+    lib.bd_build_counts16.restype = ct.c_int32
+    lib.bd_build_counts16.argtypes = [
+        ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32), ct.c_int32,
+        ct.c_int64, ct.c_int64, ct.POINTER(ct.c_int16),
+        ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int32), ct.c_uint8]
+    lib.bd_pack_counts_sparse_d16.restype = ct.c_int64
+    lib.bd_pack_counts_sparse_d16.argtypes = [
+        ct.POINTER(ct.c_int16), ct.c_int64, ct.POINTER(ct.c_uint16),
+        ct.POINTER(ct.c_uint8), ct.c_int64, ct.POINTER(ct.c_int32),
+        ct.POINTER(ct.c_int32), ct.c_int64, ct.POINTER(ct.c_int64)]
+    lib.bd_total_cum16.restype = None
+    lib.bd_total_cum16.argtypes = [ct.POINTER(ct.c_int16), ct.c_int32,
+                                   ct.c_int64, ct.POINTER(ct.c_int32)]
+    lib.bd_clon_cum16.restype = None
+    lib.bd_clon_cum16.argtypes = [ct.POINTER(ct.c_int16), ct.c_int32,
+                                  ct.c_int64, ct.c_int32,
+                                  ct.POINTER(ct.c_int32),
+                                  ct.POINTER(ct.c_float)]
     lib.bd_select_events.restype = ct.c_int64
     lib.bd_select_events.argtypes = [
         ct.c_void_p, ct.c_int32, ct.POINTER(ct.c_int32),
@@ -224,6 +242,34 @@ class BamArrays:
                             min_qual)
         return out.reshape(n_mm, 4, L)
 
+    def build_counts_padded(self, rid: int, qid2mmidx: np.ndarray,
+                            n_mm: int, L: int, Lp: int, Mp: int,
+                            min_qual: int = 30):
+        """Native event->counts scatter straight into a padded int16
+        tensor [Mp, 4, Lp], the mm levels with no counted base dropped in
+        the same pass (bd_build_counts16). Returns (counts16,
+        level_events[n_mm] int64, level_map[n_mm] int32: each level's kept
+        index or -1), or None when a cell would overflow int16 (an
+        exact-mm count over 32,767): the caller builds int32 counts
+        instead."""
+        if not (Mp >= n_mm and Lp >= L):
+            raise ValueError(f"padded shape ({Mp}, {Lp}) below ({n_mm}, "
+                             f"{L})")
+        h = self._require_handle()
+        lib = self._handle_obj.lib
+        q = np.ascontiguousarray(qid2mmidx, dtype=np.int32)
+        out = np.zeros(Mp * 4 * Lp, dtype=np.int16)
+        level_events = np.zeros(n_mm, dtype=np.int64)
+        level_map = np.zeros(n_mm, dtype=np.int32)
+        kept = lib.bd_build_counts16(
+            h, rid, q.ctypes.data_as(ct.POINTER(ct.c_int32)), n_mm, L, Lp,
+            out.ctypes.data_as(ct.POINTER(ct.c_int16)),
+            level_events.ctypes.data_as(ct.POINTER(ct.c_int64)),
+            level_map.ctypes.data_as(ct.POINTER(ct.c_int32)), min_qual)
+        if kept < 0:
+            return None
+        return out.reshape(Mp, 4, Lp), level_events, level_map
+
     def select_events(self, rid: int, qid2mmidx: np.ndarray,
                       pos_mask: np.ndarray, min_qual: int = 30,
                       capacity: int = 1 << 20):
@@ -335,6 +381,83 @@ def decode_bam(path: str, ref_seqs: Optional[Dict[str, np.ndarray]] = None,
     finally:
         if h:
             lib.bd_free(h)
+
+
+def _int16_counts(counts16: np.ndarray) -> np.ndarray:
+    c = np.ascontiguousarray(counts16)
+    if c.dtype != np.int16 or c.ndim != 3 or c.shape[1] != 4:
+        raise ValueError(f"counts must be int16 [M, 4, L], got {c.dtype} "
+                         f"{c.shape}")
+    return c
+
+
+def pack_counts_sparse_d16_into(counts16: np.ndarray, delta_out: np.ndarray,
+                                vals_out: np.ndarray, corr_idx: np.ndarray,
+                                corr_val: np.ndarray):
+    """Delta-encoded sparse pack of one int16 count tensor into the given
+    buffers (bd_pack_counts_sparse_d16): for each nonzero cell, in flat
+    order, a uint16 delta from the previous entry's flat index (the first
+    from -1; gaps over 65,535 chained through zero-value entries) and its
+    value as uint8, saturated at 255; each cell over 255 also an int32
+    correction (its flat index, value - 255). Returns (entries,
+    corrections) the tensor needs; where either exceeds its buffer the
+    buffer holds a prefix (buffers of length 0 count without writing)."""
+    flat = np.ascontiguousarray(counts16).reshape(-1)
+    if flat.dtype != np.int16:
+        raise ValueError(f"counts must be int16, got {flat.dtype}")
+    if not (delta_out.dtype == np.uint16 and vals_out.dtype == np.uint8 and
+            corr_idx.dtype == np.int32 and corr_val.dtype == np.int32 and
+            len(delta_out) == len(vals_out) and
+            len(corr_idx) == len(corr_val)):
+        raise ValueError("wire buffers must be uint16/uint8 and int32/int32 "
+                         "pairs of equal lengths")
+    for a in (delta_out, vals_out, corr_idx, corr_val):
+        if not a.flags.c_contiguous:
+            raise ValueError("wire buffers must be contiguous")
+    ncorr = ct.c_int64(0)
+    nnz = _load_lib().bd_pack_counts_sparse_d16(
+        flat.ctypes.data_as(ct.POINTER(ct.c_int16)), flat.size,
+        delta_out.ctypes.data_as(ct.POINTER(ct.c_uint16)),
+        vals_out.ctypes.data_as(ct.POINTER(ct.c_uint8)), len(vals_out),
+        corr_idx.ctypes.data_as(ct.POINTER(ct.c_int32)),
+        corr_val.ctypes.data_as(ct.POINTER(ct.c_int32)), len(corr_idx),
+        ct.byref(ncorr))
+    return int(nnz), int(ncorr.value)
+
+
+def total_cum16(counts16: np.ndarray, n_mm: int) -> np.ndarray:
+    """Cumulative coverage [n_mm, Lp] int32 of an int16 count tensor
+    [Mp, 4, Lp] (bd_total_cum16): the sum over bases of the counts of
+    levels 0..m."""
+    c = _int16_counts(counts16)
+    if not 0 <= n_mm <= c.shape[0]:
+        raise ValueError(f"n_mm {n_mm} outside the tensor's {c.shape[0]}")
+    Lp = c.shape[2]
+    out = np.empty((n_mm, Lp), dtype=np.int32)
+    _load_lib().bd_total_cum16(c.ctypes.data_as(ct.POINTER(ct.c_int16)),
+                               n_mm, Lp,
+                               out.ctypes.data_as(ct.POINTER(ct.c_int32)))
+    return out
+
+
+def clon_cum16(counts16: np.ndarray, n_mm: int, min_cov: int):
+    """One native pass over an int16 count tensor [Mp, 4, Lp]
+    (bd_clon_cum16): (total int32 [n_mm, Lp] as total_cum16, clonality
+    float32 [n_mm, Lp], NaN where the exact level has no count or the
+    coverage is below min_cov): the hybrid and batch engines' total and
+    clon of a scaffold whose counts went over the sparse wire, as the JAX
+    package's take them."""
+    c = _int16_counts(counts16)
+    if not 0 <= n_mm <= c.shape[0]:
+        raise ValueError(f"n_mm {n_mm} outside the tensor's {c.shape[0]}")
+    Lp = c.shape[2]
+    total = np.empty((n_mm, Lp), dtype=np.int32)
+    clon = np.empty((n_mm, Lp), dtype=np.float32)
+    _load_lib().bd_clon_cum16(c.ctypes.data_as(ct.POINTER(ct.c_int16)),
+                              n_mm, Lp, min_cov,
+                              total.ctypes.data_as(ct.POINTER(ct.c_int32)),
+                              clon.ctypes.data_as(ct.POINTER(ct.c_float)))
+    return total, clon
 
 
 def baq_one(ref_codes: np.ndarray, pos: int, cigar: np.ndarray,

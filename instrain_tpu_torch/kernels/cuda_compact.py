@@ -8,7 +8,8 @@ end to end. One scaffold is a chunk of one segment
 (cuda_sitestats.single_segment).
 
 Three kernels, CUDA C++ in csrc/compact.cu (built with the others by
-build.cuda_kernels_library, bound with ctypes):
+build.cuda_kernels_library, bound with ctypes), and K8 before them for
+chunks whose counts came over the sparse wire:
 
   select_rows    C1: the SNP rows and the linkage profiles at SNV
                  positions, by a two-pass stream compaction sized exactly
@@ -32,6 +33,12 @@ build.cuda_kernels_library, bound with ctypes):
                  split over enough blocks to fill the card and read two or
                  three times, its state kept on the device between
                  launches. median_plan says which rows go which way.
+  densify_sparse K8 (csrc/densify.cu): the chunk's int32 counts from the
+                 hybrid and batch engines' delta-encoded sparse count wire
+                 (replaces _densify_sparse, :665-685): per-tile sums of
+                 the deltas, one scan of them, a block scan per tile that
+                 places each nonzero entry, and a pass for the corrections
+                 of counts over 255. Bound by bytes: the zeroed output.
 
 As in cuda_sitestats.py, each wrapper takes its plain PyTorch version
 (kernels/sitestats.py) only because the tensors it was given lie on the
@@ -80,6 +87,9 @@ def _lib():
             lib.instrain_median_long.restype = I
             lib.instrain_median_long.argtypes = med + [P, I, I64, I64] + [
                 P, P, P]
+            lib.instrain_densify.restype = I
+            lib.instrain_densify.argtypes = [P, I, I64, P, P, P, P, I64, I,
+                                             I64, P, P, P]
             _bound = True
     return lib
 
@@ -403,16 +413,63 @@ def masked_median(total, clon_f, clonR_f, counted, rarefied,
 masked_median.launches = 0
 
 
+def densify_sparse(wire: plain.SparseWire, M: int, Ltot: int
+                   ) -> torch.Tensor:
+    """K8: the chunk's int32 counts [M, 4, Ltot] from its sparse wire, as
+    kernels/sitestats.py:densify_sparse_plain (the wire's tensors on one
+    device; on the CPU that plain version)."""
+    name = "densify_sparse"
+    dev = wire.deltas.device
+    if dev.type == "cpu":
+        return plain.densify_sparse_plain(wire, M, Ltot)
+    if dev.type != "cuda":
+        _fail(name, f"unsupported device {dev}")
+    S = wire.S
+    for t, dt, n in ((wire.table, torch.int64,
+                      plain.WIRE_ROWS * (S + 1)),
+                     (wire.corr_idx, torch.int32, wire.corr_val.numel()),
+                     (wire.corr_val, torch.int32, wire.corr_idx.numel()),
+                     (wire.deltas, torch.int16, wire.vals.numel()),
+                     (wire.vals, torch.uint8, wire.deltas.numel())):
+        if t.dtype != dt or t.dim() != 1 or t.numel() != n:
+            _fail(name, f"wire tensor must be {dt} [{n}], got {t.dtype} "
+                        f"{tuple(t.shape)}")
+        if t.device != dev:
+            _fail(name, "wire tensors on two devices")
+        if not t.is_contiguous():
+            _fail(name, "wire tensors must be contiguous")
+    if not (S >= 1 and M >= 1 and Ltot >= 1 and wire.flat < 2 ** 31 and
+            -(-wire.deltas.numel() // plain.WIRE_TILE) <= wire.n_tiles
+            < 2 ** 31):
+        _fail(name, f"S {S}, M {M}, Ltot {Ltot}, flat extent {wire.flat} "
+                    f"or {wire.n_tiles} tiles out of range")
+    out = torch.empty((M, 4, Ltot), dtype=torch.int32, device=dev)
+    sums = torch.empty(wire.n_tiles + 1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _check(_lib().instrain_densify(
+            wire.table.data_ptr(), S, wire.n_tiles, wire.deltas.data_ptr(),
+            wire.vals.data_ptr(), wire.corr_idx.data_ptr(),
+            wire.corr_val.data_ptr(), wire.corr_idx.numel(), M, Ltot,
+            sums.data_ptr(), out.data_ptr(), _stream(out)), name)
+    densify_sparse.launches += 1
+    return out
+
+
+densify_sparse.launches = 0
+
+
 def reset_launch_counts() -> None:
     select_rows.launches = 0
     mm_aggregates.launches = 0
     masked_median.launches = 0
+    densify_sparse.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"select_rows": select_rows.launches,
             "mm_aggregates": mm_aggregates.launches,
-            "masked_median": masked_median.launches}
+            "masked_median": masked_median.launches,
+            "densify_sparse": densify_sparse.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -446,3 +503,25 @@ def site_stats_compact(counts, ref_codes, null_lut, freq_lut,
     out = compact_from_full(full, seg)
     out["dense"] = dict(clon=full["clon"], clonR=full["clonR"])
     return out
+
+
+def site_stats_compact_sparse(wire: plain.SparseWire, ref_codes, null_lut,
+                              freq_lut, seg: plain.Segments, M: int,
+                              m_stride: int, min_cov: int = 5,
+                              min_covR: int = 50, rarefied_draws: int = 50):
+    """site_stats_compact from the chunk's sparse count wire — the
+    counterpart of instrain_tpu/kernels/sitestats.py:
+    site_stats_compact_sparse (:693-741) and its batched form (:875-908):
+    K8 (densify_sparse) into [M, 4, seg.L] int32 counts, then
+    cuda_sitestats.site_stats and compact_from_full as site_stats_compact.
+    Its dense holds clonR alone (the JAX package's dense_device=False):
+    the host rebuilds total and clon from the int16 counts it holds
+    (io.bam.clon_cum16). Returns (the compact dict, the card's clon
+    [M, seg.L], left on the device)."""
+    counts = densify_sparse(wire, M, seg.L)
+    full = cs.site_stats(counts, ref_codes, null_lut, freq_lut, seg,
+                         min_cov=min_cov, min_covR=min_covR,
+                         rarefied_draws=rarefied_draws, m_stride=m_stride)
+    out = compact_from_full(full, seg)
+    out["dense"] = dict(clonR=full["clonR"])
+    return out, full["clon"]

@@ -23,7 +23,7 @@ the f32 reciprocal of the draw count.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -550,3 +550,71 @@ def masked_medians_seg(total, clon_f, clonR_f, counted, rarefied,
                                     clonR_f[:, a:b], counted[s],
                                     rarefied[s]))
     return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+
+# ---------------------------------------------------------------------------
+# K8: the sparse count wire of the hybrid and batch engines
+
+WIRE_TILE = 2048        # wire entries per block of the densify kernel
+WIRE_ROWS = 5           # rows of a SparseWire's table
+
+
+class SparseWire(NamedTuple):
+    """A chunk's counts as the delta-encoded sparse wire
+    (io.bam.pack_counts_sparse_d16_into, scaffold after scaffold), as the
+    densify kernel (csrc/densify.cu) reads it. Scaffold s's entries
+    [e_off[s], e_off[s + 1]) and corrections [c_off[s], c_off[s + 1])
+    index the flat [Mc, 4, Lp[s]] of the int16 tensor it was packed from,
+    which may be padded (the native padded builder's); its true positions
+    are those of the chunk's segment s, [off[s], off[s + 1]).
+
+    table: int64 [WIRE_ROWS * (S + 1)], rows e_off, c_off, tile0 (the
+    first tile of WIRE_TILE entries, the last entry the tiles in all), Lp
+    (the last entry 0) and off; corr_idx / corr_val: int32 [C] (flat
+    index, count - 255); deltas: int16 [V], the bits of the uint16 deltas;
+    vals: uint8 [V], each count saturated at 255. flat: the largest
+    4 * Lp * Mc of the packed tensors (Mc their mm extent)."""
+    table: torch.Tensor
+    corr_idx: torch.Tensor
+    corr_val: torch.Tensor
+    deltas: torch.Tensor
+    vals: torch.Tensor
+    S: int
+    n_tiles: int
+    flat: int
+
+    def rows(self):
+        """The table's rows as int64 numpy arrays (e_off, c_off, tile0,
+        Lp, off): a copy to the host where the table is on a device."""
+        return self.table.cpu().numpy().reshape(WIRE_ROWS, self.S + 1)
+
+
+def densify_sparse_plain(wire: SparseWire, M: int, Ltot: int
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the densify kernel — the counterpart of
+    instrain_tpu/kernels/sitestats.py:_densify_sparse (:665-685) for a
+    chunk: int32 counts [M, 4, Ltot], each scaffold's cells at its
+    segment's positions. Per scaffold idx = cumsum(delta) - 1, then the
+    values and the corrections added at their flat (m, b, p) cells. An
+    entry of value 0 (a chained gap over 65,535, a zero-padded tail)
+    adds nothing and is not placed; no entry lands past the scaffold's
+    true length or mm levels, where the padded tensor held zeros."""
+    dev = wire.deltas.device
+    out = torch.zeros(M * 4 * Ltot, dtype=torch.int32, device=dev)
+    e_off, c_off, _, lp, off = wire.rows()
+    vals = wire.vals.to(torch.int32)
+    deltas = wire.deltas.to(torch.int64) & 0xFFFF
+
+    def place(s, idx, v):
+        Lp, a, L = int(lp[s]), int(off[s]), int(off[s + 1] - off[s])
+        m, r = idx // (4 * Lp), idx % (4 * Lp)
+        b, p = r // Lp, r % Lp
+        keep = (v != 0) & (idx >= 0) & (m < M) & (p < L)
+        out.index_add_(0, ((m * 4 + b) * Ltot + a + p)[keep], v[keep])
+
+    for s in range(wire.S):
+        e0, e1 = int(e_off[s]), int(e_off[s + 1])
+        place(s, torch.cumsum(deltas[e0:e1], 0) - 1, vals[e0:e1])
+        c0, c1 = int(c_off[s]), int(c_off[s + 1])
+        place(s, wire.corr_idx[c0:c1].to(torch.int64), wire.corr_val[c0:c1])
+    return out.view(M, 4, Ltot)

@@ -280,12 +280,12 @@ def _gene_ranges(gdb: pd.DataFrame, L: int):
 
 
 def calc_gene_coverage(gdb: pd.DataFrame, stats) -> pd.DataFrame:
-    """Per-gene per-mm coverage/breadth (reference: 352-371). The
-    pileup's counts are never padded in this package."""
+    """Per-gene per-mm coverage/breadth (reference: 352-371), from the
+    pileup's true-shaped counts."""
     L = stats.pileup.length
     starts, ends, lens = _gene_ranges(gdb, L)
     total = stats.total.astype(np.float64)         # [M, L] cumulative
-    exact = stats.pileup.counts.sum(axis=1)
+    exact = stats.pileup.counts_exact.sum(axis=1)
     covered = np.cumsum(exact, axis=0) > 0         # [M, L]
 
     csum = np.concatenate([np.zeros((total.shape[0], 1)),

@@ -3,7 +3,9 @@ Per-scaffold pileup construction and the dense site-stats engine — the
 counterpart of instrain_tpu/profile/pileup.py.
 
 Decoded base events of filtered read pairs scatter natively into
-counts[M, 4, L] (M = distinct pair-mismatch levels on the scaffold), then
+counts[M, 4, L] (M = distinct pair-mismatch levels on the scaffold) —
+int32, or for the hybrid and batch engines int16 and bucket-padded, the
+form their sparse count wire packs (build_scaffold_pileup_padded) — then
 the site-stats kernels (kernels/cuda_sitestats.py) compute clonality, SNV
 calls and the cryptic scan for every (mm, position) cell on the chosen
 device, and the results come back to host numpy for the tables.
@@ -36,6 +38,17 @@ class ScaffoldPileup:
     # event source for linkage capture (native-backed)
     bam: Optional[BamArrays] = None
     qid2mmidx: Optional[np.ndarray] = None  # int32 per qname -> mm index
+    # set when counts is bucket-padded ([Mp, 4, Lp] int16 from the native
+    # padded builder): the true number of mm levels M. `length` stays the
+    # true L. None: counts has the true shape.
+    true_M: Optional[int] = None
+
+    @property
+    def counts_exact(self) -> np.ndarray:
+        """The true-shaped [M, 4, L] view of counts (no bucket padding)."""
+        if self.true_M is None:
+            return self.counts
+        return self.counts[:self.true_M, :, :self.length]
 
     def select_events(self, pos_mask: np.ndarray):
         """(pos, base, mm_idx, qname) of counted bases at masked positions
@@ -52,15 +65,10 @@ def build_scaffold_pileup(bam: BamArrays, pairs: PairSet, rid: int,
     filtering) into the dense count tensor — a single native pass over the
     decoder's event buffers (bd_build_counts).
     """
-    qids, mms = pairs.r2m_for_scaffold(rid)
-    if len(qids) == 0:
+    levels = _qid_levels(bam, pairs, rid)
+    if levels is None:
         return None
-    mm_values = np.unique(mms)
-    mm_to_idx = {int(m): i for i, m in enumerate(mm_values)}
-    n_q = bam.n_qnames
-    qid2mmidx = np.full(n_q, -1, dtype=np.int32)
-    qid2mmidx[qids] = np.array([mm_to_idx[int(m)] for m in mms],
-                               dtype=np.int32)
+    mm_values, qid2mmidx = levels
 
     counts = bam.build_counts(rid, qid2mmidx, len(mm_values), length)
     if counts.sum() == 0:
@@ -82,6 +90,59 @@ def build_scaffold_pileup(bam: BamArrays, pairs: PairSet, rid: int,
     return ScaffoldPileup(name=bam.ref_names[rid], rid=rid, length=length,
                           mm_values=mm_values, counts=counts,
                           bam=bam, qid2mmidx=qid2mmidx)
+
+
+def _qid_levels(bam: BamArrays, pairs: PairSet, rid: int):
+    """(distinct pair mms of the scaffold's pairs, their qname -> mm level
+    map), or None where the scaffold has no pairs."""
+    qids, mms = pairs.r2m_for_scaffold(rid)
+    if len(qids) == 0:
+        return None
+    mm_values = np.unique(mms)
+    mm_to_idx = {int(m): i for i, m in enumerate(mm_values)}
+    qid2mmidx = np.full(bam.n_qnames, -1, dtype=np.int32)
+    qid2mmidx[qids] = np.array([mm_to_idx[int(m)] for m in mms],
+                               dtype=np.int32)
+    return mm_values, qid2mmidx
+
+
+def build_scaffold_pileup_padded(bam: BamArrays, pairs: PairSet, rid: int,
+                                 length: int, m_step: int = 8,
+                                 l_step: int = 4096
+                                 ) -> Optional[ScaffoldPileup]:
+    """
+    build_scaffold_pileup through the native padded int16 scatter
+    (bd_build_counts16) — the counterpart of
+    instrain_tpu/profile/pileup.py:build_scaffold_pileup_padded: the
+    counts come out bucket-padded, [Mp, 4, Lp] with the mm axis to a
+    multiple of `m_step` (at least m_step) and the positions to one of
+    `l_step`, the empty mm levels dropped in the same pass, ready for the
+    hybrid and batch engines' sparse count wire. Where an exact-mm count
+    exceeds int16 (32,767) the int32 builder's pileup is returned
+    instead: a route the data decides, as in the JAX package.
+    """
+    levels = _qid_levels(bam, pairs, rid)
+    if levels is None:
+        return None
+    mm_values, qid2mmidx = levels
+    n_mm = len(mm_values)
+    Lp = max(_bucket(length, l_step), l_step)
+    res = bam.build_counts_padded(rid, qid2mmidx, n_mm, length, Lp,
+                                  max(_bucket(n_mm, m_step), m_step))
+    if res is None:
+        return build_scaffold_pileup(bam, pairs, rid, length)
+    counts, level_events, level_map = res
+    kept = int((level_events > 0).sum())
+    if kept == 0:
+        return None
+    if kept < n_mm:
+        qid2mmidx = np.where(qid2mmidx >= 0, level_map[qid2mmidx],
+                             -1).astype(np.int32)
+        mm_values = mm_values[level_events > 0]
+    Mp = max(_bucket(kept, m_step), m_step)
+    return ScaffoldPileup(name=bam.ref_names[rid], rid=rid, length=length,
+                          mm_values=mm_values, counts=counts[:Mp],
+                          bam=bam, qid2mmidx=qid2mmidx, true_M=kept)
 
 
 @dataclass
@@ -129,7 +190,7 @@ def run_site_stats(pileup: ScaffoldPileup, ref_codes: np.ndarray,
     is bit-identical to it.
     """
     from .compact import _fold_keys
-    counts = pileup.counts
+    counts = pileup.counts_exact
     M, _, L = counts.shape
     dev = default_device(device)
     null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=dev)

@@ -72,7 +72,8 @@ from . import linkage as linkage_mod
 from . import tables
 from .filter_reads import filter_reads, filter_reads_distributed
 from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
-                     make_luts, run_site_stats)
+                     build_scaffold_pileup_padded, make_luts,
+                     run_site_stats)
 
 # Phase accounting: set to a dict ({} works) to accumulate wall seconds
 # per phase of a profile run. The main thread's phases (decode, filter,
@@ -215,36 +216,28 @@ def resolve_run_engine(cfg_engine: str, device: torch.device,
     return engine
 
 
-# The int16 pileup builder of the JAX package's hybrid engine falls back
-# to the unpadded int32 one when an exact-mm count exceeds this
-# (instrain_tpu/profile/pileup.py:121-126)
-INT16_MAX = 32767
-
-
 def resolve_engine(cfg_engine: str, device: torch.device, M: int, L: int,
-                   skip_mm: bool = False, counts=None,
-                   shards: int = 1) -> str:
+                   skip_mm: bool = False, shards: int = 1,
+                   int16: bool = True) -> str:
     """The engine one scaffold of [M, L] runs outside the batch engine, as
     the JAX package picks it (pipeline.py:451-453, :458-481): auto is dense
     on the CPU and hybrid on a GPU; hybrid goes dense when the extent of
     the pileup the JAX package builds exceeds HYBRID_MAX_CELLS times the
-    shards it is split over. That
-    pileup is unpadded, M * L, under skip_mm (M is then 1) or when an
-    exact-mm count of `counts` (the scaffold's [M, 4, L] pileup; only its
-    max() is read, and only when the padded extent is over the bound)
-    exceeds INT16_MAX; else padded, max(ceil8(M), 8) *
-    max(ceil4096(L), 4096)."""
+    shards it is split over. That pileup is padded, max(ceil8(M), 8) *
+    max(ceil4096(L), 4096), where the padded int16 builder kept it
+    (`int16`, the builder's outcome: pileup.true_M is set); else unpadded,
+    M * L: under skip_mm (M is then 1) and where an exact-mm count
+    overflowed int16."""
     engine = cfg_engine
     if engine == "auto":
         engine = "dense" if device.type == "cpu" else "hybrid"
     if engine != "hybrid":
         return engine
-    bound = HYBRID_MAX_CELLS * shards
-    cells = max(_bucket(M, 8), 8) * max(_bucket(L, 4096), 4096)
-    if cells > bound and (
-            skip_mm or (counts is not None and counts.max() > INT16_MAX)):
+    if int16 and not skip_mm:
+        cells = max(_bucket(M, 8), 8) * max(_bucket(L, 4096), 4096)
+    else:
         cells = M * L
-    return "dense" if cells > bound else engine
+    return "dense" if cells > HYBRID_MAX_CELLS * shards else engine
 
 
 @dataclass
@@ -587,7 +580,7 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
         return None
     L = registry.length_of(name)
     with _phase("pileup"):
-        pileup = _build_pileup(bam, pairs, rid, L, cfg)
+        pileup = _build_pileup(bam, pairs, rid, L, cfg, padded=False)
         if pileup is None:
             return None
     ref_codes = registry.codes[name]
@@ -602,9 +595,15 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
                                   gene_data)
 
 
-def _build_pileup(bam, pairs, rid, L, cfg):
-    """The scaffold's pileup; with skip_mm_profiling, its mm axis
-    collapsed: every pair counts at level 0."""
+def _build_pileup(bam, pairs, rid, L, cfg, padded: bool):
+    """The scaffold's pileup: int16 and bucket-padded from the native
+    padded builder where `padded` (the hybrid and batch engines' sparse
+    wire; int32 where an exact-mm count overflows int16), else int32, as
+    the JAX package builds it (instrain_tpu/profile/pipeline.py:454-461,
+    :588-601). With skip_mm_profiling, int32 with its mm axis collapsed:
+    every pair counts at level 0."""
+    if padded and not cfg.skip_mm_profiling:
+        return build_scaffold_pileup_padded(bam, pairs, rid, L)
     pileup = build_scaffold_pileup(bam, pairs, rid, L)
     if pileup is not None and cfg.skip_mm_profiling:
         pileup.counts = pileup.counts.sum(axis=0, keepdims=True,
@@ -680,7 +679,8 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                         _inject_failure(name, cfg)
                     oversize = (engine == "batch" and
                                 _oversize(pairs, rid, L, cfg, shards))
-                    pu = _build_pileup(bam, pairs, rid, L, cfg)
+                    pu = _build_pileup(bam, pairs, rid, L, cfg,
+                                       padded=not oversize)
                 except Exception as e:
                     _contain(name, e)
                     continue
@@ -688,9 +688,9 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                 continue
             if engine == "hybrid":
                 oversize = resolve_engine(
-                    engine, device, pu.counts.shape[0], L,
-                    skip_mm=cfg.skip_mm_profiling, counts=pu.counts,
-                    shards=shards) == "dense"
+                    engine, device, pu.counts_exact.shape[0], L,
+                    skip_mm=cfg.skip_mm_profiling, shards=shards,
+                    int16=pu.true_M is not None) == "dense"
             i = len(metas)
             metas[i] = (name, L, registry.codes[name])
             if oversize:
@@ -792,7 +792,7 @@ def _finalize_result(r: ScaffoldProfileResult, cfg, qnames) -> Dict:
         gene_results=r.gene_results,
     )
     if cfg.store_everything:
-        out["counts_sum"] = r.stats.pileup.counts.sum(axis=0).T
+        out["counts_sum"] = r.stats.pileup.counts_exact.sum(axis=0).T
     return out
 
 

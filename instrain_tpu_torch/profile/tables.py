@@ -181,7 +181,7 @@ def estimate_breadth(coverage):
 def covT_view(stats: ScaffoldStats) -> Dict[int, pd.Series]:
     """mm -> Series of exact-mm coverage at present positions (int32)."""
     out = {}
-    exact = stats.pileup.counts.sum(axis=1)       # [M, L]
+    exact = stats.pileup.counts_exact.sum(axis=1)  # [M, L]
     for i, mm in enumerate(stats.mm_values):
         pos = np.nonzero(exact[i] > 0)[0]
         out[int(mm)] = pd.Series(exact[i, pos].astype("int32"), index=pos)

@@ -8,6 +8,11 @@ same order as the JAX package's benchmark generator (bench_batch.synth),
 so for equal seed and sizes the BAM is byte-identical to it (asserted in
 tests/test_torch_io.py).
 
+synth_mixed: synth's layout with a length and a coverage of its own for
+each scaffold — one deep enough that an exact-mm count exceeds int16
+beside ordinary ones exercises the int32 route of the hybrid and batch
+engines' pileups.
+
 synth_samples: the input of `compare` — one shared FASTA, one BAM per
 sample mapped to it, and a scaffold-to-genome file; each genome has two
 strain haplotypes, and each sample carries one of them at its own
@@ -70,6 +75,35 @@ def synth(workdir: str, S: int = 128, L: int = 40_000, COV: int = 30,
     write_bgzf(bam, b"".join(parts))
     make_bai(bam)
     return fasta, bam, S * n_pairs
+
+
+def synth_mixed(workdir: str,
+                shapes: Sequence[Tuple[int, int]] = ((5000, 40),) * 4 +
+                ((1000, 30_000),), seed: int = 7) -> Tuple[str, str, int]:
+    """Write <workdir>/synth.fasta, synth.bam and synth.bam.bai of one
+    scaffold scaf_<s> per (length, coverage) of `shapes`, as synth writes
+    its scaffolds (the default: four of 5 kb at 40x and one of 1 kb at
+    30,000x, whose middle positions hold some 40,000 reads at mm level 0);
+    returns (fasta, bam, number of read pairs)."""
+    rng = np.random.default_rng(seed)
+    fasta = os.path.join(workdir, "synth.fasta")
+    bam = os.path.join(workdir, "synth.bam")
+    refs = []
+    with open(fasta, "w") as f:
+        for s, (L, _) in enumerate(shapes):
+            seq = BASES[rng.integers(0, 4, L)]
+            refs.append(seq)
+            f.write(f">scaf_{s}\n{seq.tobytes().decode()}\n")
+    parts = [bam_header([(f"scaf_{s}", L) for s, (L, _) in
+                         enumerate(shapes)])]
+    qid = 0
+    for s, (L, cov) in enumerate(shapes):
+        n_pairs = int(L * cov / (2 * READ))
+        parts.append(_scaffold_records(rng, s, refs[s], L, n_pairs, qid))
+        qid += n_pairs
+    write_bgzf(bam, b"".join(parts))
+    make_bai(bam)
+    return fasta, bam, qid
 
 
 def synth_samples(workdir: str, n_samples: int, S: int, L: int,

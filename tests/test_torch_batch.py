@@ -139,7 +139,7 @@ def test_plain_batch_matches_golden(name):
     got = golden_chunk(g, name)
     assert {**C.launch_counts(), **CC.launch_counts()} == dict.fromkeys(
         ("site_stats", "clonR", "select_rows", "mm_aggregates",
-         "masked_median"), 0)
+         "masked_median", "densify_sparse"), 0)
     assert len(got) == len(G.CHUNKS[name])
     for s, (M, st) in enumerate(got):
         want = {grp: {} for grp in ("rows", "agg", "linkage", "masks")}
@@ -399,7 +399,7 @@ def test_segmented_kernels_match_plain_on_gpu(M, lengths, cuda_device):
     torch.cuda.synchronize()
     assert {**C.launch_counts(), **CC.launch_counts()} == {
         "site_stats": 0, "clonR": 1, "select_rows": 1, "mm_aggregates": 1,
-        "masked_median": 1}
+        "masked_median": 1, "densify_sparse": 0}
     pclonR = S.clonR_values_seg(full["cum"], full["total"],
                                 full["clonR_set"], seg, 50, Mp)
     prows, plink = S.select_rows_seg(full, seg)

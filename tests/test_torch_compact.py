@@ -154,7 +154,7 @@ def test_k4_plain_matches_jax(case):
     assert_compact_equal(want, one_scaffold(CC.compact_from_full(full, seg)),
                          "wrapper")
     assert CC.launch_counts() == {"select_rows": 0, "mm_aggregates": 0,
-                                  "masked_median": 0}
+                                  "masked_median": 0, "densify_sparse": 0}
     kind = case[0]
     assert (want["rows"]["n_rows"] == 0) == (kind in ("no_rows",
                                                       "uncounted"))
@@ -322,34 +322,25 @@ def test_resolve_engine():
 
     # ... and when an exact-mm count overflows int16, so that the padded
     # int16 builder falls back (instrain_tpu/profile/pileup.py:121-126);
-    # the rule reads only the counts' max()
-    class Peak:
-        def __init__(self, v):
-            self.v = v
-
-        def max(self):
-            return self.v
-
-    over, under = Peak(PP.INT16_MAX + 1), Peak(PP.INT16_MAX)
+    # the rule reads the builder's outcome
     for M in range(1, 9):
         for L in ((1 << 24) + 1, (1 << 27) // M):
             if not (1 << 24) < L <= (1 << 27) // M:
                 continue
             assert PP.resolve_engine("hybrid", cuda, M, L,
-                                     counts=over) == "hybrid", (M, L)
+                                     int16=False) == "hybrid", (M, L)
             assert PP.resolve_engine("hybrid", cuda, M, L,
-                                     counts=under) == "dense", (M, L)
+                                     int16=True) == "dense", (M, L)
             assert PP.resolve_engine("hybrid", cuda, M, L) == "dense"
         assert PP.resolve_engine("hybrid", cuda, M, (1 << 27) // M + 1,
-                                 counts=over) == "dense", M
-    # the padded cases stand under a small peak or none
-    for peak in (None, under):
-        assert PP.resolve_engine("auto", cuda, 8, 1 << 24,
-                                 counts=peak) == "hybrid"
+                                 int16=False) == "dense", M
+    # the padded cases stand where the builder kept int16, the default
+    for kw in ({}, {"int16": True}):
+        assert PP.resolve_engine("auto", cuda, 8, 1 << 24, **kw) == "hybrid"
         assert PP.resolve_engine("auto", cuda, 8, (1 << 24) + 1,
-                                 counts=peak) == "dense"
+                                 **kw) == "dense"
         assert PP.resolve_engine("hybrid", cpu, 9, (1 << 23) + 1,
-                                 counts=peak) == "dense"
+                                 **kw) == "dense"
     # the run-level rule (instrain_tpu/profile/pipeline.py:239-246, :255):
     # auto is batch on a GPU from 16 kept scaffolds on, hybrid below and
     # dense on the CPU; batch with one scaffold runs hybrid
@@ -663,7 +654,7 @@ def test_k4_kernels_match_plain_on_gpu(M, L, seed, cuda_device):
                            agg["rarefied"], seg)
     torch.cuda.synchronize()
     assert CC.launch_counts() == {"select_rows": 1, "mm_aggregates": 1,
-                                  "masked_median": 1}
+                                  "masked_median": 1, "densify_sparse": 0}
     prows, plink = S.select_rows_seg(full, seg)
     pagg, pclon_f, pclonR_f = S.mm_aggregates_seg(full, seg)
     pmed = S.masked_medians_seg(full["total"], pclon_f, pclonR_f,
