@@ -117,10 +117,13 @@ Phases (each prints its own lines; the first failure exits non-zero):
      pair, mm level), no scaffold failure, every pooling decode ranged
      (the pooling phase's seconds printed), and the device run drawing
      the dendrograms (where matplotlib imports; else the failure logged).
-     Then K8 against its plain version on the card, bit for bit, at the
-     wires kept from the metagenome's, the isolate's, the deep input's and
-     the overflow input's runs, its device time (L2 flushed) and bound at
-     each. Then 66 tiny
+     Then K8 against its plain version on the card, bit for bit, into an
+     output filled with a sentinel, at densify_probe.py's edge cases (each
+     with and without zero-value tails) and at the wires kept from the
+     metagenome's, the isolate's, the deep input's and the overflow
+     input's runs; at each wire its device time (L2 flushed), a bare
+     zero_() of its output's and its bound. Then
+     66 tiny
      samples (2 x 2 kb, 5-15x) profiled on the card and compared through
      the overlap kernel (one launch, counted around the run) and the host
      engine: the comparison table byte for byte;
@@ -378,8 +381,8 @@ def flush_l2(torch):
     _FLUSH[0].fill_(1)
 
 
-def cold_ms(torch, fn, n, busy=False):
-    """Mean ms of fn over n calls, each after an L2 flush, by CUDA events
+def cold_times(torch, fn, n, busy=False):
+    """ms of each of n calls of fn, each after an L2 flush, by CUDA events
     around each call alone: host waits inside fn included; or, with
     `busy`, the device time of the launches fn enqueues alone, the card
     kept busy (torch.cuda._sleep) while the host enqueues them (fn must
@@ -398,7 +401,12 @@ def cold_ms(torch, fn, n, busy=False):
         b.record()
         events.append((a, b))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / n
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def cold_ms(torch, fn, n, busy=False):
+    """Mean of cold_times."""
+    return sum(cold_times(torch, fn, n, busy)) / n
 
 
 def phase_kernels(torch, card):
@@ -897,35 +905,76 @@ def densify_bound(wire, M, Ltot):
     return bound(nbytes(wire) + 16 * M * Ltot)
 
 
-def phase_densify(torch, card, captured):
-    """K8 against its plain version on the card, bit for bit, at the
-    chunk wires the main paths and the int16-overflow input gave it; its
-    device time with the L2 flushed (the card kept busy while the host
-    enqueues), the plain version's, and its bound. Returns (max abs err,
-    {run: (ms, plain_ms, bound_ms, bound_by)})."""
+SENTINEL = 0x7F7F7F7F
+
+
+def densify_into_sentinel(torch, wire, M, Ltot):
+    """K8 into an output filled with SENTINEL first, so a cell it does
+    not write shows."""
     from instrain_tpu_torch.kernels import cuda_compact as CC
+    out = torch.full((M, 4, Ltot), SENTINEL, dtype=torch.int32,
+                     device=wire.deltas.device)
+    return CC.densify_sparse(wire, M, Ltot, out=out)
+
+
+def phase_densify(torch, card, captured):
+    """K8 against its plain version on the card, bit for bit, each time
+    into an output filled with a sentinel: at densify_probe.py's edge
+    cases (synth.densify_case), with and without zero-value tails, and at
+    the chunk wires the main paths and the int16-overflow input gave it;
+    at each of those its device time with the L2 flushed (the card kept
+    busy while the host enqueues), a bare zero_() of the same output's
+    (the floor for writing the counts), the plain version's, and its
+    bound. Returns (max abs err, {run: (ms, plain_ms, bound_ms, bound_by,
+    memset_ms)})."""
+    import numpy as np
     from instrain_tpu_torch.kernels import sitestats as S
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.profile import compact as PC
+    from instrain_tpu_torch.synth import (DENSIFY_EDGE_CASES, densify_case,
+                                          wire_with_zero_tail)
     err, out = 0.0, {}
+    for name in DENSIFY_EDGE_CASES:
+        tensors, lengths, M = densify_case(name, seed=0)
+        Ltot = sum(lengths)
+        buf, layout = PC.stage_wire(tensors, lengths, [
+            np.zeros(L, np.uint8) for L in lengths], pin=True)
+        wire, _ = PC.wire_views(buf.to("cuda"), layout)
+        want = S.densify_sparse_plain(wire, M, Ltot)
+        for tail in (0, 3):
+            w = wire_with_zero_tail(wire, tail) if tail else wire
+            got = densify_into_sentinel(torch, w, M, Ltot)
+            torch.cuda.synchronize()
+            err = max(err, compare_exact(
+                {"counts": want}, {"counts": got},
+                f"densify_sparse, edge case {name}, zero tail {tail}"))
+    log("densify", f"{len(DENSIFY_EDGE_CASES)} edge cases "
+                   f"({', '.join(DENSIFY_EDGE_CASES)}), each with and "
+                   f"without zero-value tails, into a sentinel-filled "
+                   f"output == plain bitwise")
     for run, (wire, M, Ltot) in captured.items():
-        got = CC.densify_sparse(wire, M, Ltot)
+        got = densify_into_sentinel(torch, wire, M, Ltot)
         want = S.densify_sparse_plain(wire, M, Ltot)
         torch.cuda.synchronize()
         err = max(err, compare_exact({"counts": want}, {"counts": got},
                                      f"densify_sparse, {run}"))
         ms = cold_ms(torch, lambda: CC.densify_sparse(wire, M, Ltot), 20,
                      busy=True)
+        memset_ms = cold_ms(torch, lambda: got.zero_(), 20, busy=True)
         plain_ms = cuda_ms(torch, lambda: S.densify_sparse_plain(
             wire, M, Ltot), 3)
         b = densify_bound(wire, M, Ltot)
-        out[run] = (ms, plain_ms) + b
+        out[run] = (ms, plain_ms) + b + (memset_ms,)
         V, C = wire.vals.numel(), wire.corr_idx.numel()
         log("densify", f"{run}: chunk of {wire.S} scaffold(s), M={M}, "
                        f"{Ltot} positions, {V} entries "
                        f"({V / (4 * M * Ltot):.4f} of the cells), {C} "
-                       f"corrections == plain bitwise; "
-                       f"on {card} device {ms:.4f} ms (L2 flushed) vs plain "
-                       f"{plain_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, "
-                       f"{nbytes(wire) + 16 * M * Ltot} bytes)")
+                       f"corrections, into a sentinel-filled output == "
+                       f"plain bitwise; on {card} device {ms:.4f} ms (L2 "
+                       f"flushed) vs zero_() of the output {memset_ms:.4f} "
+                       f"ms, plain {plain_ms:.4f} ms; bound {b[0]:.4f} ms "
+                       f"({b[1]}, {nbytes(wire) + 16 * M * Ltot} bytes), "
+                       f"{100 * b[0] / ms:.1f} % of it")
     return err, out
 
 
@@ -3147,17 +3196,17 @@ def main():
              **{k: main_shape[name][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     # K8 at the metagenome's largest chunk wire, as its batch run gave it
-    # (no single PyTorch call computes it: library_ms null)
+    # (no single PyTorch call computes it: library_ms null), beside a bare
+    # zero_() of its output (memset_ms), and at every captured wire
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "memset_ms")
     kernels.append(
         {"name": "densify_sparse", "route": "cuda",
          "source": "instrain_tpu_torch/csrc/densify.cu",
          "replaces": "instrain_tpu/kernels/sitestats.py:665",
          "launches": launches["densify_sparse"],
          "max_abs_err": errs["densify_sparse"],
-         **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
-                    k8["metagenome"])), "library_ms": None,
-         "at": {run: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
-                              v)) for run, v in k8.items()}})
+         **dict(zip(keys, k8["metagenome"])), "library_ms": None,
+         "at": {run: dict(zip(keys, v)) for run, v in k8.items()}})
     main_shape = k7["study"]     # the compare run's group: 8 samples
     kernels.append(
         {"name": "overlap_counts", "route": "cuda",

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """
 The compaction kernels select_rows and mm_aggregates, compare's overlap
-kernel (K7) and device linkage's ld kernel (K6) of this checkout against
-an earlier design of the same kernels, in one process on one NVIDIA GPU,
-each design called through its own wrappers; and (stores) the whole
-`profile` of the metagenome through each package.
+kernel (K7), device linkage's ld kernel (K6) and the sparse wire's K8
+(densify_sparse) of this checkout against an earlier design of the same
+kernels, in one process on one NVIDIA GPU, each design called through its
+own wrappers; and (stores) the whole `profile` of the metagenome through
+each package.
 
     mkdir -p .scratch/base
     git archive a1862b1 instrain_tpu_torch | tar -x -C .scratch/base
@@ -13,7 +14,8 @@ each design called through its own wrappers; and (stores) the whole
 DIR is the earlier commit's package: it is loaded beside this checkout's
 as the package `instrain_earlier` (its modules import one another
 relatively) and builds its own kernels into its own _build/. PARTs (all
-by default): peak, overlap, group, compact, ld, stores. The overlap part
+by default): peak, overlap, group, compact, ld, stores, densify. The
+overlap part
 needs an
 earlier package with the per-scaffold K7 entry (60a2909's, the design
 the group launch replaced); group one with the group launch
@@ -45,6 +47,22 @@ and this design with and without its draws made ahead; then the whole device lin
 the table, of both packages, by the host's clock to synchronize, with
 the copies between host and device each makes counted under
 torch.profiler.
+
+densify: K8 (densify_sparse) of both packages at the sparse count wires
+the three --engine auto runs gave it (each run's largest chunk: the
+metagenome's, the isolate's, the deep input's) and at densify_probe.py's
+52 x 40 kb chunk (M = 8, 10 % of cells nonzero): the outputs held equal
+bit for bit (this design's written into a sentinel-filled output, and
+held to the plain version too), then the device time of each call, L2
+flushed, 20 calls a turn in turns (earlier, this, this, earlier), beside
+a bare zero_() of the output (the floor for writing the counts), and the
+medians; this design's launches timed apart under torch.profiler
+(densify_probe.kernel_times).
+Against the first design (a memset, then a scatter of the nonzero cells
+and an atomic pass for the corrections), its native sources beside it:
+
+    git archive cd61465 instrain_tpu_torch native | tar -x -C .scratch/base13
+    python3 compact_ab.py .scratch/base13/instrain_tpu_torch densify
 
 stores: chip_smoke.py's metagenome (128 x 40 kb at 30x, synth seed 7)
 through `profile --engine auto` (the batch engine) of the earlier
@@ -106,7 +124,9 @@ def load_earlier(pkg_dir):
 def captured_shapes(cases=smoke.MAIN_CASES):
     """([(name, full, seg)] of the largest chunk of each main path's
     --engine auto run, on inputs made as chip_smoke.py makes them; the
-    arguments of the last device linkage call and of its ld launch)."""
+    arguments of the last device linkage call and of its ld launch; [(name,
+    wire, M, Ltot)] of the sparse count wire K8 got for each run's largest
+    chunk)."""
     from instrain_tpu_torch.profile import linkage as PL
     from instrain_tpu_torch.synth import synth
     shutil.rmtree(WORK, ignore_errors=True)
@@ -123,19 +143,20 @@ def captured_shapes(cases=smoke.MAIN_CASES):
 
     PL._calculate_linkage_device, PL._device_ld_args = keep_call, keep_args
     try:
-        with smoke.CompactCapture() as capture:
+        with smoke.CompactCapture() as capture, smoke.WireCapture() as wires:
             for name, S, L, cov in cases:
                 d = os.path.join(WORK, name)
                 os.makedirs(d)
                 fasta, bam, _ = synth(d, S=S, L=L, COV=cov, seed=7)
-                capture.run = name
+                capture.run = wires.run = name
                 smoke.run_profile(bam, fasta, os.path.join(d, "auto.IS"),
                                   "auto")
     finally:
         PL._calculate_linkage_device, PL._device_ld_args = saved
     smoke.check(len(calls) >= 2, "no device linkage call in the main paths")
     return ([(f"{n} (captured)", *capture.inputs[n]) for n, *_ in cases],
-            calls[-2], calls[-1])
+            calls[-2], calls[-1],
+            [(f"{n} (captured)", *wires.inputs[n]) for n, *_ in cases])
 
 
 def in_turns(torch, designs, busy):
@@ -467,6 +488,59 @@ def peak_rates():
 
 
 STORE_RUNS = 6                          # runs of each package (stores)
+def probe_chunk(torch):
+    """(name, wire on the card, M, Ltot) of densify_probe.py's 52 x 40 kb
+    chunk (M = 8, 10 % of cells nonzero)."""
+    import numpy as np
+    from instrain_tpu_torch.profile import compact as PC
+    from instrain_tpu_torch.synth import densify_case
+    tensors, lengths, M = densify_case("metachunk", seed=0)
+    buf, layout = PC.stage_wire(tensors, lengths, [
+        np.zeros(L, np.uint8) for L in lengths])
+    return ("52 x 40 kb chunk", PC.wire_views(buf.to("cuda"), layout)[0], M,
+            sum(lengths))
+
+
+def ab_densify(torch, ecc, name, wire, M, Ltot, card):
+    """K8 of both designs at one wire: the two outputs held equal bit for
+    bit (and to the plain version), then each design's device time, L2
+    flushed, 2 * N calls a turn in turns (earlier, this, this, earlier),
+    and a bare zero_() of the output's: medians of every call."""
+    from statistics import median
+    from densify_probe import kernel_times
+    from instrain_tpu_torch.kernels import cuda_compact as CC
+    from instrain_tpu_torch.kernels import sitestats as S
+    got = smoke.densify_into_sentinel(torch, wire, M, Ltot)
+    old = ecc.densify_sparse(wire, M, Ltot)
+    want = S.densify_sparse_plain(wire, M, Ltot)
+    torch.cuda.synchronize()
+    smoke.compare_exact({"counts": old}, {"counts": got},
+                        f"densify_sparse, {name}: this design vs the earlier")
+    smoke.compare_exact({"counts": want}, {"counts": got},
+                        f"densify_sparse, {name}: this design vs plain")
+    calls = {"earlier": lambda: ecc.densify_sparse(wire, M, Ltot),
+             "this": lambda: CC.densify_sparse(wire, M, Ltot),
+             "memset": lambda: got.zero_()}
+    t = {k: [] for k in calls}
+    for d in ("earlier", "this", "memset", "this", "earlier", "memset"):
+        t[d] += smoke.cold_times(torch, calls[d], 2 * N, busy=True)
+    r = {f"{k}_ms": median(v) for k, v in t.items()}
+    r["bound_ms"], r["bound_by"] = smoke.densify_bound(wire, M, Ltot)
+    r["kernels_ms"] = kernel_times(lambda: CC.densify_sparse(wire, M, Ltot))
+    smoke.log("ab", f"densify_sparse, {name} ({wire.S} scaffold(s), M={M}, "
+                    f"{Ltot} positions, {wire.vals.numel()} entries, "
+                    f"{wire.corr_idx.numel()} corrections) on {card}, "
+                    f"outputs equal bit for bit: device median "
+                    f"{r['this_ms']:.4f} ms (earlier {r['earlier_ms']:.4f}, "
+                    f"{r['earlier_ms'] / r['this_ms']:.2f}x; by kernel " +
+                    ", ".join(f"{k} {v:.4f}" for k, v in
+                              r["kernels_ms"].items()) +
+                    f"), zero_() of the output {r['memset_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                    f"{100 * r['bound_ms'] / r['this_ms']:.1f} % of it")
+    return r
+
+
 STORE_KEYS = ("wall", "store", "tables", "store_reads", "special_stream")
 
 
@@ -527,7 +601,8 @@ def ab_stores(torch, card):
     return out
 
 
-PARTS = ("peak", "overlap", "group", "compact", "ld", "stores")
+PARTS = ("peak", "overlap", "group", "compact", "ld", "stores",
+         "densify")
 
 
 def main():
@@ -553,11 +628,11 @@ def main():
             results["overlap_counts"] = ab_overlap(torch, ecmp, card)
         if "group" in parts:
             results["overlap_counts_group"] = ab_group(torch, ecmp, card)
-        if "compact" in parts or "ld" in parts:
+        if {"compact", "ld", "densify"} & set(parts):
             # the deep input alone when only ld is asked for
-            captured, deep_call, deep_args = captured_shapes(
-                smoke.MAIN_CASES if "compact" in parts else
-                smoke.MAIN_CASES[2:])
+            captured, deep_call, deep_args, wires = captured_shapes(
+                smoke.MAIN_CASES if {"compact", "densify"} & set(parts)
+                else smoke.MAIN_CASES[2:])
         if "compact" in parts:
             for name, full, seg in captured + smoke.synthetic_shapes(torch):
                 results[name] = ab_compact(torch, ecc, name, full, seg, card)
@@ -566,6 +641,10 @@ def main():
                                        deep_args)
         if "stores" in parts:
             results["stores"] = ab_stores(torch, card)
+        if "densify" in parts:
+            results["densify_sparse"] = {
+                name: ab_densify(torch, ecc, name, wire, M, Ltot, card)
+                for name, wire, M, Ltot in wires + [probe_chunk(torch)]}
     except smoke.SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

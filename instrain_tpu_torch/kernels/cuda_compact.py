@@ -35,10 +35,13 @@ chunks whose counts came over the sparse wire:
                  launches. median_plan says which rows go which way.
   densify_sparse K8 (csrc/densify.cu): the chunk's int32 counts from the
                  hybrid and batch engines' delta-encoded sparse count wire
-                 (replaces _densify_sparse, :665-685): per-tile sums of
-                 the deltas, one scan of them, a block scan per tile that
-                 places each nonzero entry, and a pass for the corrections
-                 of counts over 255. Bound by bytes: the zeroed output.
+                 (replaces _densify_sparse, :665-685): each entry's flat
+                 index by tile sums and a scan per tile, a warp search for
+                 where each window's and each row's entries and
+                 corrections start, then a block per 32 KB window of the
+                 output that places them in shared memory and stores
+                 every cell once, with no memset and no atomics. Bound by
+                 bytes: the output.
 
 As in cuda_sitestats.py, each wrapper takes its plain PyTorch version
 (kernels/sitestats.py) only because the tensors it was given lie on the
@@ -88,8 +91,8 @@ def _lib():
             lib.instrain_median_long.argtypes = med + [P, I, I64, I64] + [
                 P, P, P]
             lib.instrain_densify.restype = I
-            lib.instrain_densify.argtypes = [P, I, I64, P, P, P, P, I64, I,
-                                             I64, P, P, P]
+            lib.instrain_densify.argtypes = [P, I, I64, P, P, P, P, I, I64,
+                                             I64, I64, P, P, P]
             _bound = True
     return lib
 
@@ -413,15 +416,42 @@ def masked_median(total, clon_f, clonR_f, counted, rarefied,
 masked_median.launches = 0
 
 
-def densify_sparse(wire: plain.SparseWire, M: int, Ltot: int
-                   ) -> torch.Tensor:
+DENSIFY_WINDOW = 8192   # cells a window of K8's fill (densify.cu kWindow)
+
+
+def densify_geometry(n_entries: int, n_tiles: int, S: int, M: int,
+                     Ltot: int) -> Tuple[int, int]:
+    """(windows, scratch bytes) of K8's launches: the fill's windows of
+    DENSIFY_WINDOW cells over the flat [M, 4, Ltot] output (the last one
+    short where the cells run out), and the scratch they share: where
+    each window's items start, for the entries and for the corrections
+    (int64 [windows] each), where each row's start (int64 [S, 4 M + 1]
+    each), each window's scaffold, each tile's sum of WIRE_TILE deltas
+    and each entry's flat index (int32)."""
+    windows = -(-4 * M * Ltot // DENSIFY_WINDOW)
+    return windows, (8 * (2 * windows + 2 * S * (4 * M + 1)) +
+                     4 * (windows + n_tiles + n_entries))
+
+
+def densify_sparse(wire: plain.SparseWire, M: int, Ltot: int, *,
+                   out: torch.Tensor = None) -> torch.Tensor:
     """K8: the chunk's int32 counts [M, 4, Ltot] from its sparse wire, as
     kernels/sitestats.py:densify_sparse_plain (the wire's tensors on one
-    device; on the CPU that plain version)."""
+    device; on the CPU that plain version). Each scaffold's corrections
+    come in ascending flat order, as the packer writes them. `out`
+    (private: the tests and chip_smoke.py) is the contiguous int32
+    [M, 4, Ltot] to write, every cell of it; by default a new tensor."""
     name = "densify_sparse"
     dev = wire.deltas.device
+    if out is not None and (out.dtype != torch.int32 or
+                            tuple(out.shape) != (M, 4, Ltot) or
+                            not out.is_contiguous() or out.device != dev or
+                            out.data_ptr() % 16):
+        _fail(name, f"out must be a contiguous, 16-byte aligned int32 "
+                    f"{(M, 4, Ltot)} on {dev}")
     if dev.type == "cpu":
-        return plain.densify_sparse_plain(wire, M, Ltot)
+        got = plain.densify_sparse_plain(wire, M, Ltot)
+        return got if out is None else out.copy_(got)
     if dev.type != "cuda":
         _fail(name, f"unsupported device {dev}")
     S = wire.S
@@ -438,19 +468,23 @@ def densify_sparse(wire: plain.SparseWire, M: int, Ltot: int
             _fail(name, "wire tensors on two devices")
         if not t.is_contiguous():
             _fail(name, "wire tensors must be contiguous")
+    V = wire.deltas.numel()
+    n_windows, n_scratch = densify_geometry(V, wire.n_tiles, S, M,
+                                             Ltot)
     if not (S >= 1 and M >= 1 and Ltot >= 1 and wire.flat < 2 ** 31 and
-            -(-wire.deltas.numel() // plain.WIRE_TILE) <= wire.n_tiles
-            < 2 ** 31):
+            -(-V // plain.WIRE_TILE) <= wire.n_tiles < 2 ** 31 and
+            n_windows < 2 ** 31):
         _fail(name, f"S {S}, M {M}, Ltot {Ltot}, flat extent {wire.flat} "
                     f"or {wire.n_tiles} tiles out of range")
-    out = torch.empty((M, 4, Ltot), dtype=torch.int32, device=dev)
-    sums = torch.empty(wire.n_tiles + 1, dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty((M, 4, Ltot), dtype=torch.int32, device=dev)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _check(_lib().instrain_densify(
             wire.table.data_ptr(), S, wire.n_tiles, wire.deltas.data_ptr(),
             wire.vals.data_ptr(), wire.corr_idx.data_ptr(),
-            wire.corr_val.data_ptr(), wire.corr_idx.numel(), M, Ltot,
-            sums.data_ptr(), out.data_ptr(), _stream(out)), name)
+            wire.corr_val.data_ptr(), M, Ltot, DENSIFY_WINDOW, n_windows,
+            scratch.data_ptr(), out.data_ptr(), _stream(out)), name)
     densify_sparse.launches += 1
     return out
 

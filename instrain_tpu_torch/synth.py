@@ -461,3 +461,136 @@ def ld_inputs(E: int, M: int, N: int, seed: int):
         c.append(np.cumsum(exact, axis=1).astype(np.int32))
     present = [rng.random((E, M)) < 0.9 for _ in range(2)]
     return e_idx, mm_idx, combo, c[0], c[1], present[0], present[1]
+
+
+# The densify kernel's (K8's) inputs: the edge cases, each small, then a
+# metagenome chunk and an isolate at their real widths
+DENSIFY_EDGE_CASES = ("empty", "values", "gap", "chunk", "ragged",
+                      "straddle", "holes", "none", "window_edges",
+                      "many_tiles")
+DENSIFY_CASES = DENSIFY_EDGE_CASES + ("metachunk", "isolate", "deep")
+
+
+def _random_counts(rng, shape, p: float, hi: int):
+    return (rng.integers(0, hi, shape) * (rng.random(shape) < p)).astype(
+        np.int16)
+
+
+def densify_case(name: str, seed: int):
+    """(int16 count tensors [Mc, 4, Lp], true lengths, M) of a chunk for
+    the densify kernel (kernels/cuda_compact.densify_sparse, whose output
+    windows are 4,096 cells), each tensor zero past M and its length.
+
+    empty: scaffolds with no entries around one with one; values: counts
+    of 254, 255, 256 and 32,767; gap: a gap over 65,535 whose chained
+    entry of value 0 lands in the padding; chunk: scaffolds of uneven
+    lengths; ragged: 4 M Ltot not a multiple of 4,096 and Ltot odd;
+    straddle: rows shorter than a window, so windows span rows and
+    scaffolds; holes: scaffolds with no entries in the middle and at the
+    end; none: no entries at all (no tiles); window_edges: counts over 255
+    (a correction each) in the first and last cell of every window;
+    many_tiles: one scaffold of some 400,000 entries (about 200 tiles of
+    2,048); metachunk: 52 x 40 kb at M = 8, 10 % of cells nonzero;
+    isolate: 2.5 Mb at M = 8, 5 %; deep: 250 kb at M = 5, 7.8 % of cells
+    nonzero and most of them over 255 (a correction each), as a 3000x
+    scaffold's counts are."""
+    rng = np.random.default_rng(seed)
+    if name == "empty":
+        t = [np.zeros((8, 4, 4096), np.int16), np.zeros((8, 4, 8192),
+                                                         np.int16)]
+        t[1][2, 1, 17] = 3
+        return t + [np.zeros((8, 4, 4096), np.int16)], [100, 5000, 4096], 3
+    if name == "values":
+        t = np.zeros((8, 4, 4096), np.int16)
+        for k, v in enumerate((254, 255, 256, 32767, 1)):
+            t[k % 3, k % 4, 100 * k:100 * k + 50] = v
+        t[2, 3, 4000] = 32767
+        return [t], [4001], 3
+    if name == "gap":
+        # nonzero cells at flat 4617 and 73738 of [1, 4, 24576]: the gap
+        # of 69,121 chains an entry of value 0 to flat 70152, position
+        # 21000 of base 2, in the padding past L = 20,000
+        t = np.zeros((8, 4, 24576), np.int16)
+        t[0, 0, 4617] = 7
+        t[0, 3, 10] = 300
+        t[0, 3, 19999] = 2
+        return [t], [20000], 1
+    if name in ("chunk", "ragged", "straddle", "holes", "none"):
+        lengths, M, p, hi, empty = {
+            "chunk": ([1, 4000, 17, 4096, 9000], 5, 0.3, 40, ()),
+            "ragged": ([1001, 2002, 7], 3, 0.3, 600, ()),
+            "straddle": ([1500, 700, 900, 13], 4, 0.5, 400, ()),
+            "holes": ([3000, 2000, 3000, 1500], 2, 0.2, 300, (1, 3)),
+            "none": ([5000, 123], 2, 0.0, 1, ())}[name]
+        out = []
+        for s, L in enumerate(lengths):
+            t = np.zeros((8, 4, -(-L // 4096) * 4096), np.int16)
+            if s not in empty and p > 0:
+                t[:5, :, :L] = _random_counts(rng, (5, 4, L), p, hi)
+                t[1, 2, L - 1] = 1000
+                t[M:] = 0
+            out.append(t)
+        return out, lengths, M
+    if name == "window_edges":
+        L, M = 8192, 2
+        t = np.zeros((M, 4, 9216), np.int16)
+        t[:, :, :L] = _random_counts(rng, (M, 4, L), 0.05, 30)
+        for c in range(0, 4 * M * L, 4096):
+            for cell in (c, c + 4095):
+                r, q = divmod(cell, L)
+                t[r // 4, r % 4, q] = 256 + cell % 1000
+        return [t], [L], M
+    if name == "many_tiles":
+        L, M = 50_000, 4
+        t = np.zeros((M, 4, 50_176), np.int16)
+        t[:, :, :L] = _random_counts(rng, (M, 4, L), 0.5, 300)
+        return [t], [L], M
+    if name == "metachunk":
+        lengths = [40000] * 52
+        out = []
+        for L in lengths:
+            t = np.zeros((8, 4, 40960), np.int16)
+            t[:, :, :L] = _random_counts(rng, (8, 4, L), 0.1, 60)
+            out.append(t)
+        return out, lengths, 8
+    if name == "deep":
+        L, M = 250_000, 5
+        t = np.zeros((8, 4, 250_880), np.int16)
+        cells = rng.random((M, 4, L)) < 0.078
+        t[:M, :, :L] = np.where(rng.random((M, 4, L)) < 0.87,
+                                rng.integers(256, 4000, (M, 4, L)),
+                                rng.integers(1, 40, (M, 4, L))) * cells
+        return [t], [L], M
+    if name == "isolate":
+        L = 2_500_000
+        t = np.zeros((8, 4, 2502656), np.int16)
+        t[:, :, :L] = _random_counts(rng, (8, 4, L), 0.05, 300)
+        return [t], [L], 8
+    raise ValueError(name)
+
+
+def wire_with_zero_tail(wire, pad: int):
+    """The SparseWire (kernels/sitestats.py) of `wire`, on its device,
+    with `pad` entries of delta 0 and value 0 after each scaffold's, as a
+    packer into zero-padded buffers leaves them: each repeats its
+    scaffold's last index (index -1 where it has no entries) and places
+    nothing."""
+    import torch
+    from .kernels.sitestats import WIRE_ROWS, WIRE_TILE
+    rows = torch.tensor(wire.rows())
+    e_off = rows[0]
+    n = e_off[1:] - e_off[:-1]
+    parts = {"deltas": [], "vals": []}
+    for s in range(wire.S):
+        a, b = int(e_off[s]), int(e_off[s + 1])
+        for k in parts:
+            x = getattr(wire, k)
+            parts[k] += [x[a:b], torch.zeros(pad, dtype=x.dtype,
+                                             device=x.device)]
+    rows[0] = torch.cat([e_off[:1], e_off[0] + torch.cumsum(n + pad, 0)])
+    rows[2] = torch.cat([rows[2][:1], torch.cumsum(
+        -(-(n + pad) // WIRE_TILE), 0)])
+    assert rows.shape[0] == WIRE_ROWS
+    return wire._replace(table=rows.reshape(-1).to(wire.table.device),
+                         n_tiles=int(rows[2][-1]),
+                         **{k: torch.cat(v) for k, v in parts.items()})

@@ -14,7 +14,12 @@ profile/compact.py).
   and the int16 tensors the wire was packed from: an empty scaffold,
   counts of 254, 255, 256 and 32,767, a gap over 65,535 (its chained
   entry in the padding), zero-padded tails, a chunk of scaffolds of
-  unequal lengths sliced into the port's layout, and a hypothesis fuzz.
+  unequal lengths sliced into the port's layout, and the cases of K8's
+  windows (synth.densify_case: Ltot % 4 != 0, windows over two rows and
+  scaffolds, scaffolds with no entries in the middle and at the end, no
+  entries at all, corrections in a window's first and last cell, one
+  scaffold over many tiles), and a hypothesis fuzz; K8's launch geometry
+  against a direct count; zero-value tails place nothing.
 - The chunk planner never puts int16 and int32 pileups in one chunk.
 - Where a scaffold's linkage counts exceed int16, clon is the card's
   (the JAX package's sparse path gives way to its two-phase path).
@@ -24,7 +29,8 @@ profile/compact.py).
   int16-overflow scaffold.
 - A failing K8 fails the run: no dense fallback.
 - On a GPU (marked cuda; skipped here): the kernel against its plain
-  version at the cases above.
+  version at the cases above, with and without zero-value tails, into an
+  output filled with a sentinel (every cell written).
 
 No tolerances.
 """
@@ -61,7 +67,9 @@ from instrain_tpu_torch.profile import compact as PC
 from instrain_tpu_torch.profile import pileup as PP
 from instrain_tpu_torch.profile.filter_reads import filter_reads
 from instrain_tpu_torch.profile.pileup import ScaffoldPileup
-from instrain_tpu_torch.synth import synth, synth_mixed
+from instrain_tpu_torch.synth import (DENSIFY_EDGE_CASES, densify_case,
+                                      synth, synth_mixed,
+                                      wire_with_zero_tail)
 
 FLAGS = ["--skip_genome_wide", "--skip_plot_generation"]
 TABLES = ("SNVs", "scaffold_info", "linkage", "mapping_info")
@@ -255,42 +263,26 @@ def _check_chunk(tensors, lengths, M, pad=0):
     return wire, outs[0]
 
 
+SENTINEL = 0x7F7F7F7F
+
+
+def _staged(name, device):
+    """(wire on `device`, M, Ltot, the plain version's output) of an edge
+    case, the wire staged as the engines stage it."""
+    tensors, lengths, M = _case(name)
+    buf, layout = PC.stage_wire(tensors, lengths,
+                                [np.zeros(L, np.uint8) for L in lengths])
+    Ltot = sum(lengths)
+    want = S.densify_sparse_plain(PC.wire_views(buf, layout)[0], M, Ltot)
+    return PC.wire_views(buf.to(device), layout)[0], M, Ltot, want
+
+
 def _case(name):
-    """(tensors, true lengths, M) of the edge cases."""
-    rng = np.random.default_rng(len(name))
-    if name == "empty":
-        t = [np.zeros((8, 4, 4096), np.int16), np.zeros((8, 4, 8192),
-                                                         np.int16)]
-        t[1][2, 1, 17] = 3
-        return t + [np.zeros((8, 4, 4096), np.int16)], [100, 5000, 4096], 3
-    if name == "values":
-        t = np.zeros((8, 4, 4096), np.int16)
-        for k, v in enumerate((254, 255, 256, 32767, 1)):
-            t[k % 3, k % 4, 100 * k:100 * k + 50] = v
-        t[2, 3, 4000] = 32767
-        return [t], [4001], 3
-    if name == "gap":
-        # nonzero cells at flat 4617 and 73738 of [1, 4, 24576]: the gap
-        # of 69,121 chains an entry of value 0 to flat 70152, position
-        # 21000 of base 2, in the padding past L = 20,000
-        t = np.zeros((8, 4, 24576), np.int16)
-        t[0, 0, 4617] = 7
-        t[0, 3, 10] = 300
-        t[0, 3, 19999] = 2
-        return [t], [20000], 1
-    if name == "chunk":
-        out, lengths = [], [1, 4000, 17, 4096, 9000]
-        for L in lengths:
-            t = np.zeros((8, 4, -(-L // 4096) * 4096), np.int16)
-            t[:5, :, :L] = rng.integers(0, 40, (5, 4, L)) * (
-                rng.random((5, 4, L)) < 0.3)
-            t[1, 2, L - 1] = 1000
-            out.append(t)
-        return out, lengths, 5
-    raise ValueError(name)
+    """(tensors, true lengths, M) of the edge cases (synth.densify_case)."""
+    return densify_case(name, seed=len(name))
 
 
-@pytest.mark.parametrize("name", ["empty", "values", "gap", "chunk"])
+@pytest.mark.parametrize("name", DENSIFY_EDGE_CASES)
 @pytest.mark.parametrize("pad", [0, 5])
 def test_densify_plain_matches_jax(name, pad):
     """pad: the JAX package's zero-padded tails of that many entries."""
@@ -323,6 +315,54 @@ def test_densify_plain_fuzz(data):
         tensors.append(t)
         lengths.append(L)
     _check_chunk(tensors, lengths, M, pad=data.draw(st.integers(0, 3)))
+
+
+@pytest.mark.parametrize("n_scaffolds, M, Ltot", [(1, 1, 1), (1, 1, 2048),
+                                        (2, 1, 2049), (3, 3, 3010),
+                                        (5, 5, 17114), (1, 8, 2_500_000)])
+@pytest.mark.parametrize("entries", [0, 1, 2048, 2049, 398_479])
+def test_densify_geometry_counts(n_scaffolds, M, Ltot, entries):
+    """K8's windows tile the flat output exactly, each aligned to 16
+    bytes and a multiple of 4 cells, and its scratch holds a mark a window
+    and a mark a row start (4 M + 1 a scaffold) for the entries and for the
+    corrections (int64), a scaffold a window, a sum a tile and an index an
+    entry (int32)."""
+    n_cells = 4 * M * Ltot
+    starts = list(range(0, n_cells, CC.DENSIFY_WINDOW))
+    sizes = [min(CC.DENSIFY_WINDOW, n_cells - a) for a in starts]
+    n_tiles = -(-entries // S.WIRE_TILE)
+    windows, scratch = CC.densify_geometry(entries, n_tiles, n_scaffolds, M,
+                                           Ltot)
+    assert windows == len(starts)
+    assert sum(sizes) == n_cells
+    assert all(4 * a % 16 == 0 and n % 4 == 0 for a, n in zip(starts, sizes))
+    marks = np.zeros(len(starts) + n_scaffolds * (4 * M + 1), np.int64)
+    assert scratch == (2 * marks.nbytes +
+                       np.zeros(len(starts) + n_tiles + entries,
+                                np.int32).nbytes)
+
+
+@pytest.mark.parametrize("name", DENSIFY_EDGE_CASES)
+def test_densify_zero_tail_places_nothing(name):
+    """wire_with_zero_tail's entries repeat each scaffold's last index and
+    place nothing; densify_sparse on the CPU writes into `out`, every
+    cell of it."""
+    wire, M, Ltot, want = _staged(name, torch.device("cpu"))
+    table = wire.table.clone()
+    tailed = wire_with_zero_tail(wire, 3)
+    assert torch.equal(wire.table, table)
+    e_off, _, tile0, _, _ = tailed.rows()
+    assert tailed.n_tiles == tile0[-1] == sum(
+        -(-(e_off[s + 1] - e_off[s]) // S.WIRE_TILE) for s in range(wire.S))
+    for s in range(wire.S):
+        e = e_off[s + 1]
+        assert not tailed.deltas[e - 3:e].any()
+        assert not tailed.vals[e - 3:e].any()
+    out = torch.full((M, 4, Ltot), SENTINEL, dtype=torch.int32)
+    assert CC.densify_sparse(tailed, M, Ltot, out=out) is out
+    assert torch.equal(out, want)
+    with pytest.raises(KernelError, match="out must be"):
+        CC.densify_sparse(wire, M, Ltot, out=out[:, :, 1:])
 
 
 # ---------------------------------------------------------------- planner
@@ -488,16 +528,19 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["empty", "values", "gap", "chunk"])
-def test_densify_kernel_matches_plain_on_gpu(name, cuda_device):
-    tensors, lengths, M = _case(name)
-    buf, layout = PC.stage_wire(tensors, lengths,
-                                [np.zeros(L, np.uint8) for L in lengths])
-    want = S.densify_sparse_plain(PC.wire_views(buf, layout)[0], M,
-                                  sum(lengths))
+@pytest.mark.parametrize("name", DENSIFY_EDGE_CASES)
+@pytest.mark.parametrize("tail", [0, 3])
+def test_densify_kernel_matches_plain_on_gpu(name, tail, cuda_device):
+    """K8 on the card into an output filled with a sentinel, so every cell
+    is shown written; tail: zero-value entries after each scaffold's."""
+    wire, M, Ltot, want = _staged(name, cuda_device)
+    if tail:
+        wire = wire_with_zero_tail(wire, tail)
+    out = torch.full((M, 4, Ltot), SENTINEL, dtype=torch.int32,
+                     device=cuda_device)
     CC.reset_launch_counts()
-    wire, _ = PC.wire_views(buf.to(cuda_device), layout)
-    got = CC.densify_sparse(wire, M, sum(lengths))
+    got = CC.densify_sparse(wire, M, Ltot, out=out)
     torch.cuda.synchronize()
+    assert got is out
     assert CC.launch_counts()["densify_sparse"] == 1
     assert torch.equal(got.cpu(), want)
