@@ -77,8 +77,8 @@ Phases (each prints its own lines; the first failure exits non-zero):
      over the wire); the metagenome's batch run overlaps its stores
      with the device loop (the read results on a thread of their own,
      started before the loop's last chunk landed; covT/clonT/clonTR
-     through stream writers): its main-thread phases, summed against its
-     wall, and the store threads' seconds beside them; then the
+     through stream writers): its main thread's top-level spans, summed
+     against its wall, and the store threads' seconds beside them; then the
      metagenome with -g (synth_genes' prodigal file)
      and the plots through --engine auto (batch): a gene_info row for
      every gene of the profiled scaffolds, each kernel launched as often
@@ -1368,23 +1368,28 @@ def read_table(out, name):
                        else 0)
 
 
-def store_overlap(wall, phases, marks):
-    """What the batch engine's overlapped stores did in one run: the
-    main thread's phases summed against the wall, the store threads'
-    seconds, and how long before the loop's last chunk landed the
-    read-results thread started. Fails unless both threads ran and the
-    read results started before the loop ended."""
+def store_overlap(wall, phases, spans):
+    """What the batch engine's overlapped stores did in one run, from its
+    spans (instrain_tpu_torch/obs/spans.py): the main thread's top-level
+    spans summed against the wall, the store threads' seconds, and how
+    long before the loop's last chunk landed (the end of the main
+    thread's last `kernels` span) the read-results thread started. Fails
+    unless both threads ran and the read results started before the loop
+    ended."""
     threads = ("store_reads", "special_stream")
     check(all(phases.get(k, 0.0) > 0 for k in threads),
           f"the store threads did not run: phases {phases}")
-    check(marks.get("store_reads_start", float("inf")) <
-          marks.get("loop_end", 0.0),
+    main_top = [s for s in spans
+                if s.thread == "MainThread" and s.parent is None]
+    reads = [s for s in spans if s.name == "store_reads"]
+    loops = [s for s in main_top if s.name == "kernels"]
+    check(len(reads) == 1 and loops and
+          reads[0].start_ns < loops[-1].end_ns,
           f"the read results did not start before the loop's last chunk "
-          f"landed: {marks}")
-    main = sum(v for k, v in phases.items()
-               if k not in threads and k != "genes")
-    lead = marks["loop_end"] - marks["store_reads_start"]
-    after = marks["store_reads_end"] - marks["loop_end"]
+          f"landed: {reads} {loops[-1:]}")
+    main = sum(s.seconds for s in main_top)
+    lead = (loops[-1].end_ns - reads[0].start_ns) / 1e9
+    after = (reads[0].end_ns - loops[-1].end_ns) / 1e9
     return (f"main-thread phases {main:.3f} s of the {wall:.3f} s wall; "
             f"on the store threads store_reads {phases['store_reads']:.3f}"
             f" s, special_stream {phases['special_stream']:.3f} s; the "
@@ -1898,10 +1903,11 @@ def phase_end_to_end(torch):
                    **CL.launch_counts()}
             case_launches[name] = got
             if name == "metagenome":
-                from instrain_tpu_torch.profile import pipeline
+                from instrain_tpu_torch.obs import spans
                 log("e2e", f"metagenome --engine auto (batch), overlapped "
                            f"stores: " + store_overlap(
-                               *timings[outs[name]], dict(pipeline.MARKS)))
+                               *timings[outs[name]],
+                               list(spans.RECORD.spans)))
                 # the batch engine's planned chunks, from the profiled
                 # scaffolds (in run order) and their mm levels
                 pdir = ProfileDir(outs[name])

@@ -26,9 +26,7 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -42,6 +40,7 @@ from ..kernels import cuda_compare
 from ..kernels.cuda_compact import _sms
 from ..kernels.nullmodel import null_thresholds
 from ..kernels.sitestats import freq_min_count_lut
+from ..obs import spans
 from ..obs.logging import log_checkpoint, log_failure
 from ..profile.pipeline import is_device_error, resolve_device
 from ..store import generate as gen
@@ -49,20 +48,17 @@ from ..store.profile_dir import ProfileDir
 
 BASE_IDX = {"A": 0, "C": 1, "T": 2, "G": 3}
 
-# Phase accounting: set to a dict to accumulate wall seconds per phase
-# (load, overlap, pairs, pooling, store, plots) of a compare run; None
-# adds no timers. chip_smoke.py reads it.
+# Phase accounting: set to a dict to record the spans of a compare run
+# (obs/spans.py, as profile/pipeline.py:PHASES) and add their seconds up
+# per name (load, overlap, pairs, pooling, store, plots); None reads no
+# clock. chip_smoke.py reads it.
 PHASES: Optional[Dict[str, float]] = None
 
 
-@contextmanager
-def _phase(key: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if PHASES is not None:
-            PHASES[key] = PHASES.get(key, 0.0) + time.perf_counter() - t0
+def _phase(name: str):
+    """A span of the compare run named `name`: recorded while PHASES is
+    a dict."""
+    return spans.span(name, PHASES)
 
 
 @dataclass
@@ -96,6 +92,7 @@ def check_supported(cfg: CompareConfig) -> None:
 def compare(inputs: List[str], cfg: CompareConfig,
             output: Optional[str] = None) -> ProfileDir:
     """Run the full compare operation."""
+    spans.start_run()
     check_supported(cfg)
     device = resolve_device(cfg.device)
     out = ProfileDir(output or cfg.output)

@@ -44,6 +44,7 @@ from ..io.bam import clon_cum16, pack_counts_sparse_d16_into
 from ..kernels import cuda_compact, cuda_sitestats
 from ..kernels.sitestats import (AGG_F64, AGG_INT, CLASS_NAMES, WIRE_ROWS,
                                  WIRE_TILE, Segments, SparseWire)
+from ..obs.spans import no_span
 from ..parallel.mesh import Mesh, default_device
 from .pileup import ScaffoldPileup, _bucket
 from .tables import BASES, estimate_breadth
@@ -500,11 +501,14 @@ _NP_DTYPE = {dt: torch.empty(0, dtype=dt).numpy().dtype
                         torch.int64, torch.float32, torch.float64)}
 
 
-def _finish_chunk(chunk: _Chunk) -> List[Tuple[int, "CompactStats"]]:
-    """Wait for a chunk's copy and split its outputs by scaffold:
-    [(index, CompactStats or HybridStats)] in the chunk's order."""
+def _finish_chunk(chunk: _Chunk, phase=no_span
+                  ) -> List[Tuple[int, "CompactStats"]]:
+    """Wait for a chunk's copy (timed as `phase("kernels.wait")`) and
+    split its outputs by scaffold: [(index, CompactStats or HybridStats)]
+    in the chunk's order."""
     if chunk.event is not None:
-        chunk.event.synchronize()
+        with phase("kernels.wait"):
+            chunk.event.synchronize()
     raw = chunk.host.numpy()
     tree: Dict = {}
     o = 0
@@ -564,7 +568,8 @@ def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
     is dispatched before chunk k's results are yielded, so the caller's
     tables of chunk k overlap chunk k + 1's device work, and the pileups
     it builds between items overlap the chunk in flight. `phase(name)` (a
-    context manager) times the engine's own work as "kernels". A kernel
+    context manager) times the engine's own work as "kernels", and the
+    host's wait for a chunk's copy within it as "kernels.wait". A kernel
     or CUDA fault propagates: nothing is retried.
 
     Runs on `device` (None: the current CUDA device), or over `mesh`:
@@ -572,7 +577,7 @@ def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
     positions over the mesh's devices (_dispatch_sharded), the batch
     engine sends chunk k to device k mod n with its own LUT copies and
     two streams, and keeps n chunks in flight."""
-    phase = phase or (lambda name: nullcontext())
+    phase = phase or no_span
     slots = (list(mesh.devices) if mesh is not None
              else [default_device(device)])
     by_position = len(slots) > 1 and max_chunk_cells == 0
@@ -603,7 +608,7 @@ def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
 
     def finish():
         with phase("kernels"):
-            return _finish_chunk(pending.popleft())
+            return _finish_chunk(pending.popleft(), phase)
 
     for item in items_iter:
         pu = item[1]

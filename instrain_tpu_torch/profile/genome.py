@@ -20,6 +20,7 @@ import scipy.stats
 
 from ..io.stb import load_scaff2bin
 from ..obs.logging import log_failure
+from ..obs.spans import no_span
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 
@@ -32,10 +33,17 @@ from .tables import estimate_breadth  # noqa: E402
 
 def genome_wide(isdir: ProfileDir, stb: Optional[List[str]] = None,
                 mm_level: bool = False, skip_mm_profiling: bool = False,
-                fasta_loc: Optional[str] = None):
-    """The genome_wide operation (reference: genomeUtilities.Controller)."""
-    s2l = isdir.get("scaffold2length")
-    s2b = load_scaff2bin(stb, s2l)
+                fasta_loc: Optional[str] = None, phase=no_span):
+    """The genome_wide operation (reference: genomeUtilities.Controller).
+    `phase(name)` (a context manager, as profile/pipeline.py's _phase)
+    times a profile's steps: "genome.load" (the stored tables, covT, the
+    .stb and the FASTA read back), "genome.coverage" (the per-genome
+    coverage arrays and their median, SEM and std per mm level),
+    "genome.irep" (the GC windows and the iRep fits) and "genome.write"
+    (the stores and genome_info and SNVs)."""
+    with phase("genome.load"):
+        s2l = isdir.get("scaffold2length")
+        s2b = load_scaff2bin(stb, s2l)
     b2l: Dict[str, int] = {}
     for scaffold, b in s2b.items():
         b2l.setdefault(b, 0)
@@ -44,24 +52,27 @@ def genome_wide(isdir: ProfileDir, stb: Optional[List[str]] = None,
         else:
             log_failure("StbError", scaffold,
                         f"{b} no_length will not be considered")
-    isdir.store("scaffold2bin", s2b, "dictionary",
-                "Dictionary of scaffold 2 bin")
-    isdir.store("bin2length", b2l, "dictionary",
-                "Dictionary of bin 2 total length")
+    with phase("genome.write"):
+        isdir.store("scaffold2bin", s2b, "dictionary",
+                    "Dictionary of scaffold 2 bin")
+        isdir.store("bin2length", b2l, "dictionary",
+                    "Dictionary of bin 2 total length")
 
-    object_type = isdir.get("object_type")
-    if object_type is None:
-        object_type = ("compare" if isdir.get("comparisonsTable") is not None
-                       else "profile")
+    with phase("genome.load"):
+        object_type = isdir.get("object_type")
+        if object_type is None:
+            object_type = ("compare" if isdir.get("comparisonsTable")
+                           is not None else "profile")
 
     if object_type == "profile":
         gidb = genome_level_info(isdir, s2b, b2l,
                                  skip_mm_profiling=skip_mm_profiling,
-                                 fasta_loc=fasta_loc)
-        isdir.store("genome_level_info", gidb, "pandas",
-                    "Table of genome-level information")
-        gen.generate(isdir, "genome_info", mm_level=mm_level)
-        gen.generate(isdir, "SNVs", mm_level=mm_level)
+                                 fasta_loc=fasta_loc, phase=phase)
+        with phase("genome.write"):
+            isdir.store("genome_level_info", gidb, "pandas",
+                        "Table of genome-level information")
+            gen.generate(isdir, "genome_info", mm_level=mm_level)
+            gen.generate(isdir, "SNVs", mm_level=mm_level)
     else:
         gdb = _add_stb(isdir.get("comparisonsTable"), s2b)
         out = genome_wide_readcomparer(gdb, s2b, b2l, mm_level=mm_level)
@@ -77,10 +88,17 @@ def _add_stb(db: pd.DataFrame, stb: Dict[str, str]):
 
 def genome_level_info(isdir: ProfileDir, s2b, b2l,
                       skip_mm_profiling: bool = False,
-                      fasta_loc: Optional[str] = None) -> pd.DataFrame:
-    """reference: genomeLevel_from_IS (genomeUtilities.py:145-269)."""
-    s2l = isdir.get("scaffold2length")
-    db = isdir.get("cumulative_scaffold_table")
+                      fasta_loc: Optional[str] = None,
+                      phase=no_span) -> pd.DataFrame:
+    """reference: genomeLevel_from_IS (genomeUtilities.py:145-269);
+    `phase` as genome_wide's."""
+    with phase("genome.load"):
+        s2l = isdir.get("scaffold2length")
+        db = isdir.get("cumulative_scaffold_table")
+        scaff2sequence = _load_scaff2sequence(isdir, fasta_loc)
+        covT = isdir.get("covT")
+        rdb = isdir.get("mapping_info")
+        ldb = isdir.get("raw_linkage_table")
     db["scaffold"] = db["scaffold"].astype(str)
     gdb = _add_stb(db, s2b)
 
@@ -96,15 +114,13 @@ def genome_level_info(isdir: ProfileDir, s2b, b2l,
     bin2scaffolds: Dict[str, set] = defaultdict(set)
     for s, b in s2b.items():
         bin2scaffolds[b].add(s)
-    scaff2sequence = _load_scaff2sequence(isdir, fasta_loc)
-    covT = isdir.get("covT")
     mms = ([1000] if skip_mm_profiling else
            sorted({mm for ct in covT.values() for mm in ct}))
     egdb = genome_coverage_info(covT, bin2scaffolds,
-                                set(gsi["genome"]), s2l, scaff2sequence, mms)
+                                set(gsi["genome"]), s2l, scaff2sequence, mms,
+                                phase=phase)
 
     # read-report rollup
-    rdb = isdir.get("mapping_info")
     rdb = rdb[rdb["scaffold"] != "all_scaffolds"]
     rdb = _add_stb(rdb, s2b)
     rdb = genome_wide_rr(rdb)
@@ -116,7 +132,6 @@ def genome_level_info(isdir: ProfileDir, s2b, b2l,
     mdb = pd.merge(gsi, egdb, on=["genome", "mm"], how="outer")
     mdb = pd.merge(mdb, rdb, on=["genome"], how="left")
 
-    ldb = isdir.get("raw_linkage_table")
     if ldb is not None and len(ldb) > 0:
         if skip_mm_profiling:
             ldb = (ldb.sort_values("mm")
@@ -190,8 +205,9 @@ def _genome_scaffold_info(gdb, stb, b2l) -> pd.DataFrame:
 
 
 def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
-                         scaff2sequence, mms) -> pd.DataFrame:
-    """reference: genomeLevel_coverage_info (297-365); 100 bp edge mask."""
+                         scaff2sequence, mms, phase=no_span) -> pd.DataFrame:
+    """reference: genomeLevel_coverage_info (297-365); 100 bp edge mask.
+    `phase` as genome_wide's."""
     dbs = []
     for genome, scaffolds in bin2scaffolds.items():
         if genome not in relevant_genomes:
@@ -202,34 +218,39 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
 
         gc_windows = None
         if scaff2sequence is not None:
-            try:
-                gc_windows = generate_gc_windows(scaffolds, scaff2sequence)
-            except Exception:
-                pass
+            with phase("genome.irep"):
+                try:
+                    gc_windows = generate_gc_windows(scaffolds,
+                                                     scaff2sequence)
+                except Exception:
+                    pass
 
         iRep = np.nan
         iRep_acc = {"iRep_GC_corrected": np.nan}
         for mm in mms:
-            covs = genome_coverage_array(covT, s2l, scaffolds, maxMM=mm)
+            with phase("genome.coverage"):
+                covs = genome_coverage_array(covT, s2l, scaffolds, maxMM=mm)
             if mm == 1 or mm == 1000:
-                try:
-                    with warnings.catch_warnings():
-                        warnings.simplefilter("ignore")
-                        iRep, iRep_acc = calculate_irep(covs, len(scaffolds),
-                                                        gc_windows)
-                except Exception:
-                    log_failure("iRepError", f"{genome} {mm}")
-                    iRep = np.nan
-                    iRep_acc = {"iRep_GC_corrected": np.nan}
-            if len(covs) == 0:
-                covs = np.zeros(1)
-            table["mm"].append(mm)
-            table["genome"].append(genome)
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                table["coverage_median"].append(int(np.median(covs)))
-                table["coverage_SEM"].append(scipy.stats.sem(covs))
-                table["coverage_std"].append(np.std(covs))
+                with phase("genome.irep"):
+                    try:
+                        with warnings.catch_warnings():
+                            warnings.simplefilter("ignore")
+                            iRep, iRep_acc = calculate_irep(
+                                covs, len(scaffolds), gc_windows)
+                    except Exception:
+                        log_failure("iRepError", f"{genome} {mm}")
+                        iRep = np.nan
+                        iRep_acc = {"iRep_GC_corrected": np.nan}
+            with phase("genome.coverage"):
+                if len(covs) == 0:
+                    covs = np.zeros(1)
+                table["mm"].append(mm)
+                table["genome"].append(genome)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    table["coverage_median"].append(int(np.median(covs)))
+                    table["coverage_SEM"].append(scipy.stats.sem(covs))
+                    table["coverage_std"].append(np.std(covs))
         gdb = pd.DataFrame(table)
         gdb["iRep"] = iRep
         gdb["iRep_GC_corrected"] = iRep_acc.get("iRep_GC_corrected", np.nan)

@@ -47,7 +47,6 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -59,6 +58,7 @@ from ..config import ProfileConfig
 from ..io import fasta as fasta_io
 from ..io.bam import decode_bam
 from ..kernels.cuda_sitestats import KernelError
+from ..obs import spans
 from ..obs.logging import (get_worker_log, log_checkpoint, log_failure,
                            report_run_stats)
 from ..parallel import distributed as dist_mod
@@ -75,40 +75,25 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      build_scaffold_pileup_padded, make_luts,
                      run_site_stats)
 
-# Phase accounting: set to a dict ({} works) to accumulate wall seconds
-# per phase of a profile run. The main thread's phases (decode, filter,
-# pileup, kernels, tables, gather, store, genome, plots) add up to its
-# wall; "genes" holds the gene file's parse and the gene calls (the calls
-# lie inside "tables"); "store_reads" and "special_stream" the seconds of
-# the batch engine's two store threads, which overlap the main thread's
-# phases. None adds no timers. chip_smoke.py reads it.
+# Phase accounting: set to a dict ({} works) to record the spans of a
+# profile run (obs/spans.py: spans.RECORD, reset by each run) and add
+# their seconds up per name. The main thread's top-level spans (registry,
+# decode, filter, pileup, kernels, tables, gather, store, genome, plots)
+# add up to its wall but for the log checkpoints and scaffold selection;
+# a child span, `<parent>.<step>`, lies inside its parent (kernels.wait;
+# tables.linkage, tables.views and genes; store.outputs, store.wait;
+# genome.load, genome.coverage, genome.irep, genome.write); "genes" also
+# holds the gene file's parse; "store_reads" and "special_stream" are the
+# batch engine's two store threads, which overlap the main thread. While
+# it is a dict each span is also a torch.profiler range. None reads no
+# clock. benchmark/run.py and chip_smoke.py read it.
 PHASES: Optional[Dict[str, float]] = None
-_PHASES_LOCK = threading.Lock()
-
-# time.perf_counter() of a profile run's moments, reset by each run:
-# "loop_end", when the compact engines' last results landed, and, where
-# the read results are stored on their own thread, "store_reads_start"
-# and "store_reads_end". chip_smoke.py reads it to check the overlap.
-MARKS: Dict[str, float] = {}
 
 
-class _phase:
-    """Context manager accumulating wall seconds into PHASES[key]."""
-
-    def __init__(self, key: str):
-        self.key = key
-
-    def __enter__(self):
-        if PHASES is not None:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if PHASES is not None:
-            dt = time.perf_counter() - self.t0
-            with _PHASES_LOCK:
-                PHASES[self.key] = PHASES.get(self.key, 0.0) + dt
-        return False
+def _phase(name: str):
+    """A span of the profile run named `name`: recorded while PHASES is
+    a dict (obs/spans.py)."""
+    return spans.span(name, PHASES)
 
 
 def _start_thread(name: str, target):
@@ -268,6 +253,7 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     `mesh` (parallel/mesh.make_mesh, whose devices may repeat) takes the
     place of cfg.mesh_devices; the device of the dense path and of
     linkage is then its first."""
+    spans.start_run()
     check_supported(cfg)
     device = resolve_device(cfg.device)
     if mesh is not None:
@@ -285,37 +271,39 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
 
     # per-run DEBUG file log (reference: controller.setup_logger writes
     # <out>/log/log.log)
-    fh = logging.FileHandler(isdir.get_location("log") + "log.log")
-    fh.setLevel(logging.DEBUG)
-    fh.setFormatter(logging.Formatter(
-        "%(asctime)s %(levelname)-8s %(message)s",
-        datefmt="%y-%m-%d %H:%M:%S"))
-    root = logging.getLogger("")
-    old_level = root.level
-    if old_level > logging.DEBUG:
-        root.setLevel(logging.DEBUG)
-    root.addHandler(fh)
+    with _phase("registry"):
+        fh = logging.FileHandler(isdir.get_location("log") + "log.log")
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)-8s %(message)s",
+            datefmt="%y-%m-%d %H:%M:%S"))
+        root = logging.getLogger("")
+        old_level = root.level
+        if old_level > logging.DEBUG:
+            root.setLevel(logging.DEBUG)
+        root.addHandler(fh)
     try:
         return _profile_impl(bam_path, fasta_path, cfg, isdir, device,
                              mesh)
     finally:
-        root.removeHandler(fh)
-        root.setLevel(old_level)
-        fh.close()
+        with _phase("registry"):
+            root.removeHandler(fh)
+            root.setLevel(old_level)
+            fh.close()
 
 
 def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                   isdir: Optional[ProfileDir], device: torch.device,
                   mesh: Optional[Mesh]) -> Optional[ProfileDir]:
-    MARKS.clear()
     log_checkpoint("main_profile", "filter_reads", "start")
-    registry = fasta_io.ScaffoldRegistry.from_fasta(
-        fasta_path, window_length=cfg.window_length,
-        use_full_header=cfg.use_full_fasta_header,
-        scaffolds_to_profile=fasta_io.load_scaff_list(
-            cfg.scaffolds_to_profile))
-    ref_seqs = {n: fasta_io.CODE2BASE[np.minimum(registry.codes[n], 4)]
-                for n in registry.names}
+    with _phase("registry"):
+        registry = fasta_io.ScaffoldRegistry.from_fasta(
+            fasta_path, window_length=cfg.window_length,
+            use_full_header=cfg.use_full_fasta_header,
+            scaffolds_to_profile=fasta_io.load_scaff_list(
+                cfg.scaffolds_to_profile))
+        ref_seqs = {n: fasta_io.CODE2BASE[np.minimum(registry.codes[n], 4)]
+                    for n in registry.names}
     # several processes: each decodes only the scaffolds it owns, where
     # the plan allows it (instrain_tpu/profile/pipeline.py:117-137)
     multi_host = dist_mod.process_count() > 1
@@ -385,9 +373,10 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                      f"{dist_mod.process_count()} owns {len(keep_local)} of "
                      f"{len(keep)} scaffolds")
 
-    null_lut, freq_lut = make_luts(cfg.variant)
-    null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
-    freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=device)
+    with _phase("registry"):
+        null_lut, freq_lut = make_luts(cfg.variant)
+        null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
+        freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=device)
 
     gene_data = None
     if cfg.gene_file is not None:
@@ -409,10 +398,8 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     join_reads, stream = None, {}
     if not primary_peer and engine == "batch":
         def reads_thread():
-            MARKS["store_reads_start"] = time.perf_counter()
             with _phase("store_reads"):
                 store_reads()
-            MARKS["store_reads_end"] = time.perf_counter()
         join_reads = _start_thread("instrain-store-reads", reads_thread)
         stream = {k: isdir.open_special_stream(k, d)
                   for k, d in _SPECIAL_DESCR.items()}
@@ -437,7 +424,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                 freq_t, device, gene_data, mesh, stream=stream,
                 keep_special_payload=multi_host)
         if join_reads is not None:
-            with _phase("store"):
+            with _phase("store"), _phase("store.wait"):
                 join_reads()
         if multi_host:
             mine = {r["name"] for r in finals}
@@ -475,15 +462,17 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                        prewritten=frozenset(stream))
         log_checkpoint("main_profile", "profile_scaffolds", "end")
         # outputs (reference: controller.py:352-360)
-        for t in ["SNVs", "scaffold_info", "linkage", "gene_info",
-                  "mapping_info"]:
-            gen.generate(isdir, t, force_compress=cfg.force_compress)
+        with _phase("store.outputs"):
+            for t in ["SNVs", "scaffold_info", "linkage", "gene_info",
+                      "mapping_info"]:
+                gen.generate(isdir, t, force_compress=cfg.force_compress)
     if not cfg.skip_genome_wide:
         # instrain_tpu/profile/pipeline.py:391-396
         log_checkpoint("main_profile", "genome_wide", "start")
         with _phase("genome"):
             genome_mod.genome_wide(isdir, stb=cfg.stb, mm_level=cfg.mm_level,
-                                   skip_mm_profiling=cfg.skip_mm_profiling)
+                                   skip_mm_profiling=cfg.skip_mm_profiling,
+                                   phase=_phase)
         log_checkpoint("main_profile", "genome_wide", "end")
     if not cfg.skip_plot_generation:
         # instrain_tpu/profile/pipeline.py:398-403
@@ -721,7 +710,6 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
                 items(), null_lut, freq_lut, with_dense=True, device=device,
                 max_chunk_cells=chunk_cells, phase=_phase, mesh=mesh, **kw):
             handle(i, stats)
-        MARKS["loop_end"] = time.perf_counter()
         for i, pu in dense:
             with _phase("kernels"):
                 stats = run_site_stats(pu, metas[i][2], null_lut, freq_lut,
@@ -732,7 +720,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
             finish_writes(raising=False)
         raise
     if finish_writes is not None:
-        with _phase("store"):
+        with _phase("store"), _phase("store.wait"):
             finish_writes()
     return [finals[i] for i in sorted(finals)]
 
@@ -749,8 +737,10 @@ def _result_from_stats(name, L, stats, ref_codes, cfg, device, gene_data):
         csnv = tables.cumulative_snv_table(snp)
         ctable = tables.coverage_table(stats, snp)
     ws = linkage_mod.window_starts_for(L, cfg.window_length)
-    ld = linkage_mod.calculate_linkage(stats, ws, min_snp=int(cfg.min_snp),
-                                      seed=cfg.seed, device=device)
+    with _phase("tables.linkage"):
+        ld = linkage_mod.calculate_linkage(stats, ws,
+                                          min_snp=int(cfg.min_snp),
+                                          seed=cfg.seed, device=device)
     gene_results = None
     if gene_data is not None and name in gene_data.scaff2genes:
         with _phase("genes"):
@@ -779,20 +769,21 @@ def _finalize_result(r: ScaffoldProfileResult, cfg, qnames) -> Dict:
     covT/clonT views and the linkage capture, its reads by name (the
     stats object holds views into native decoder memory and is dropped
     here). The payload is what crosses processes in a distributed run."""
-    out = dict(
-        name=r.name, length=r.length,
-        snp_table=r.snp_table,
-        cumulative_snv_table=r.cumulative_snv_table,
-        cumulative_scaffold_table=r.cumulative_scaffold_table,
-        linkage_table=r.linkage_table,
-        covT=tables.covT_view(r.stats),
-        clonT=tables.clonT_view(r.stats),
-        clonTR=tables.clonT_view(r.stats, rarefied=True),
-        reads_to_snvs=_reads_to_snvs(r.stats, qnames),
-        gene_results=r.gene_results,
-    )
-    if cfg.store_everything:
-        out["counts_sum"] = r.stats.pileup.counts_exact.sum(axis=0).T
+    with _phase("tables.views"):
+        out = dict(
+            name=r.name, length=r.length,
+            snp_table=r.snp_table,
+            cumulative_snv_table=r.cumulative_snv_table,
+            cumulative_scaffold_table=r.cumulative_scaffold_table,
+            linkage_table=r.linkage_table,
+            covT=tables.covT_view(r.stats),
+            clonT=tables.clonT_view(r.stats),
+            clonTR=tables.clonT_view(r.stats, rarefied=True),
+            reads_to_snvs=_reads_to_snvs(r.stats, qnames),
+            gene_results=r.gene_results,
+        )
+        if cfg.store_everything:
+            out["counts_sum"] = r.stats.pileup.counts_exact.sum(axis=0).T
     return out
 
 
