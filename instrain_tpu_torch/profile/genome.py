@@ -8,6 +8,7 @@ package's.
 
 from __future__ import annotations
 
+import bisect
 import logging
 import warnings
 from collections import defaultdict
@@ -16,7 +17,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import pandas as pd
 import scipy.signal
-import scipy.stats
 
 from ..io.stb import load_scaff2bin
 from ..obs.logging import log_failure
@@ -206,8 +206,23 @@ def _genome_scaffold_info(gdb, stb, b2l) -> pd.DataFrame:
 
 def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
                          scaff2sequence, mms, phase=no_span) -> pd.DataFrame:
-    """reference: genomeLevel_coverage_info (297-365); 100 bp edge mask.
-    `phase` as genome_wide's."""
+    """reference: genomeLevel_coverage_info (297-365) over
+    generate_genome_coverage_array (932-981): at each mm level of `mms`
+    (ascending), a genome's coverage is its scaffolds' covT summed over
+    mm <= level, longest scaffold first, 100 bp edges masked (a scaffold
+    under 200 bp adds nothing), concatenated; its median, SEM and std a
+    row, and iRep at mm 1 and 1000. `phase` as genome_wide's.
+
+    The concatenated float64 array is built once a genome as a running
+    sum: each level adds only the series whose mm lies above the level
+    before it, so every covT series is added once (counted in
+    `genome_coverage_info.series_added`). The median is read from a
+    histogram of the counts and std and SEM from one sum of squared
+    deviations (_coverage_stats), equal bit for bit to int(np.median),
+    np.std and scipy.stats.sem of the same array."""
+    mms = list(mms)
+    if mms != sorted(mms):
+        raise ValueError(f"mm levels must ascend: {mms}")
     dbs = []
     for genome, scaffolds in bin2scaffolds.items():
         if genome not in relevant_genomes:
@@ -225,11 +240,17 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
                 except Exception:
                     pass
 
+        with phase("genome.coverage"):
+            by_level, length = _series_by_level(covT, s2l, scaffolds, mms)
+            covs = np.zeros(length)
+            scratch = np.empty(max(length, 1))
         iRep = np.nan
         iRep_acc = {"iRep_GC_corrected": np.nan}
-        for mm in mms:
+        for mm, added in zip(mms, by_level):
             with phase("genome.coverage"):
-                covs = genome_coverage_array(covT, s2l, scaffolds, maxMM=mm)
+                for start, kept, series in added:
+                    _add_series(covs, start, kept, series)
+                genome_coverage_info.series_added += len(added)
             if mm == 1 or mm == 1000:
                 with phase("genome.irep"):
                     try:
@@ -242,15 +263,14 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
                         iRep = np.nan
                         iRep_acc = {"iRep_GC_corrected": np.nan}
             with phase("genome.coverage"):
-                if len(covs) == 0:
-                    covs = np.zeros(1)
                 table["mm"].append(mm)
                 table["genome"].append(genome)
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    table["coverage_median"].append(int(np.median(covs)))
-                    table["coverage_SEM"].append(scipy.stats.sem(covs))
-                    table["coverage_std"].append(np.std(covs))
+                median, sem, std = _coverage_stats(
+                    covs if length else np.zeros(1), scratch)
+                table["coverage_median"].append(median)
+                table["coverage_SEM"].append(sem)
+                table["coverage_std"].append(std)
+        del covs, scratch
         gdb = pd.DataFrame(table)
         gdb["iRep"] = iRep
         gdb["iRep_GC_corrected"] = iRep_acc.get("iRep_GC_corrected", np.nan)
@@ -259,25 +279,64 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
             else pd.DataFrame(columns=["mm", "genome"]))
 
 
-def genome_coverage_array(covT, s2l, order, maxMM=100,
-                          mask_edges: int = 100) -> np.ndarray:
-    """Concatenated per-genome coverage with masked scaffold edges
-    (reference: generate_genome_coverage_array, 932-981)."""
-    arrs = []
+genome_coverage_info.series_added = 0
+
+_MASK_EDGES = 100
+
+
+def _series_by_level(covT, s2l, order, mms):
+    """The covT series of the scaffolds in `order`, in one list a level of
+    `mms`: a series goes to the first level at or above its mm (none past
+    the top level), as (start, kept, series), its positions kept in
+    [_MASK_EDGES, _MASK_EDGES + kept) and shifted by start into the
+    genome's masked, concatenated layout. Also the layout's length."""
+    by_level = [[] for _ in mms]
+    offset = 0
     for scaff in order:
-        slen = s2l[scaff]
-        cov = np.zeros(slen)
-        if scaff in covT:
-            for mm, series in covT[scaff].items():
-                if mm <= maxMM:
-                    cov[series.index.values] += series.values
-        if mask_edges:
-            if slen >= mask_edges * 2:
-                cov = cov[mask_edges:slen - mask_edges]
-            else:
-                cov = np.zeros(0)
-        arrs.append(cov)
-    return np.concatenate(arrs) if arrs else np.zeros(0)
+        kept = max(s2l[scaff] - 2 * _MASK_EDGES, 0)
+        for mm, series in covT.get(scaff, {}).items():
+            level = bisect.bisect_left(mms, mm)
+            if level < len(mms):
+                by_level[level].append((offset - _MASK_EDGES, kept, series))
+        offset += kept
+    return by_level, offset
+
+
+def _add_series(covs, start, kept, series):
+    """Adds one covT series into the layout (see _series_by_level)."""
+    values = series.values
+    if values.dtype.kind not in "iu":
+        raise ValueError(f"covT holds counts, not {values.dtype}")
+    pos = series.index.values
+    inside = (pos >= _MASK_EDGES) & (pos < _MASK_EDGES + kept)
+    covs[pos[inside] + start] += values[inside]
+
+
+def _coverage_stats(covs, scratch):
+    """(int(np.median(covs)), scipy.stats.sem(covs), np.std(covs)) of a
+    non-empty float64 array of non-negative whole counts, bit for bit.
+    The median is read from the counts' histogram (even lengths: the two
+    middle values' mean, truncated by int() as there). std and SEM share
+    one sum of squared deviations, reduced as numpy's _var does: add.reduce
+    / n, subtract, multiply in place, add.reduce; SEM is std with one
+    degree of freedom less over sqrt(n), as SciPy computes it. `scratch`
+    (at least len(covs) float64) holds the counts as integers, then the
+    deviations."""
+    n = len(covs)
+    counts = scratch[:n].view(np.int64)
+    np.copyto(counts, covs, casting="unsafe")
+    below = np.cumsum(np.bincount(counts))
+    upper = int(np.searchsorted(below, n // 2, side="right"))
+    if n % 2:
+        median = upper
+    else:
+        lower = int(np.searchsorted(below, n // 2 - 1, side="right"))
+        median = (lower + upper) // 2
+    dev = np.subtract(covs, np.add.reduce(covs) / n, out=scratch[:n])
+    np.multiply(dev, dev, out=dev)
+    ss = np.add.reduce(dev)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return median, np.sqrt(ss / (n - 1)) / n ** 0.5, np.sqrt(ss / n)
 
 
 def genome_wide_rr(gdb: pd.DataFrame) -> pd.DataFrame:
