@@ -6,6 +6,10 @@ in bfloat16 in place of float32, aggregates in float32 in place of
 float64), put in the program's place and judged against the reference as
 a run judges the program. It has to come out not correct; its readings set
 the upper end of each float limit (PERF.md, "How `correct` is decided").
+A cell's checks (benchmark/checks/) are judged alike, each check's
+reference at the control's precision against its reference, over the
+cell's input files (benchmark/inputs/; written to a temporary directory,
+with no BAM).
 
     python3 benchmark/control.py --workload <cell> --seeds 1 2 3
 
@@ -17,16 +21,32 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def control_numbers(cfg: dict, seed: int) -> dict:
-    from benchmark.harness import judge
+def control_numbers(cfg: dict, seed: int, ext=None) -> dict:
+    """Every number of the control; with `ext` (registry.extensions of the
+    cell) its checks' numbers too."""
+    from benchmark.harness import judge, registry
     from benchmark.ref.profile import reference
-    return judge.judge(reference(cfg, seed, precision="control"),
-                       reference(cfg, seed))
+    low, ref = reference(cfg, seed, precision="control"), reference(cfg, seed)
+    numbers = judge.judge(low, ref)
+    if ext is None or not ext.checks:
+        return numbers
+    from benchmark.gen import reads as gen
+    lay = gen.layout(cfg, seed)
+    with tempfile.TemporaryDirectory(prefix="instrain-control-") as d:
+        paths = {n: write(cfg, seed, lay, d)
+                 for n, write in ext.writers.items()}
+        for check in ext.checks.values():
+            numbers.update(registry.check_numbers(
+                check,
+                check.reference(cfg, seed, lay, paths, low, "control"),
+                check.reference(cfg, seed, lay, paths, ref, "reference")))
+    return numbers
 
 
 def main() -> int:
@@ -36,13 +56,17 @@ def main() -> int:
     args = ap.parse_args()
     from benchmark.harness import judge, registry
     man = registry.manifest()
-    cfg = registry.config(man, registry.workload(man, args.workload)["config"])
+    cell = registry.workload(man, args.workload)
+    cfg = registry.config(man, cell["config"])
+    ext = registry.extensions(registry.traffic(cell["traffic"]),
+                              judge.LIMITS)
     for seed in args.seeds:
         t = time.perf_counter()
-        nums = control_numbers(cfg, seed)
+        nums = control_numbers(cfg, seed, ext)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "seconds": time.perf_counter() - t,
-                          "correct": judge.verdict(nums), "numbers": nums}),
+                          "correct": judge.verdict(nums, ext.limits),
+                          "numbers": nums}),
               flush=True)
     return 0
 

@@ -8,7 +8,10 @@ The benchmark of instrain_tpu_torch's `profile`, one cell per call:
 from the root of a checkout, on a machine with an NVIDIA GPU. A cell
 (BENCHMARK.json's `workloads`) names a configuration (the database and the
 read model, benchmark/configs/) and a traffic mix (the CLI arguments and
-the loop, benchmark/traffic/).
+the loop, benchmark/traffic/). The mix may name more input files
+(benchmark/inputs/, written in set-up; a traffic argument "{<input>}" is
+the file's path) and more checks (benchmark/checks/, more numbers compared
+after the window).
 
 Set-up: the imports, the program's libraries (built into the checkout on
 its first run), the sample's inputs generated from the seed
@@ -114,6 +117,8 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float,
         traffic = dict(traffic, args=list(traffic["args"]) +
                        ["--device", device])
     on_gpu = device == "cuda"
+    from benchmark.harness import judge
+    ext = registry.extensions(traffic, judge.LIMITS)
 
     setup = {}
     import torch
@@ -130,7 +135,7 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float,
     setup["libraries_s"] = time.perf_counter() - t
 
     from benchmark.gen import reads as gen
-    from benchmark.harness import judge, memory, outputs, phases, trace
+    from benchmark.harness import memory, outputs, phases, trace
     counters = (cuda_sitestats, cuda_compact, cuda_linkage, cuda_compare)
     rundir = tempfile.mkdtemp(prefix="instrain-bench-")
     peak = memory.PeakRSS()
@@ -139,6 +144,11 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float,
         inputs = gen.write_inputs(cfg_params, seed,
                                   os.path.join(rundir, "input"),
                                   threads=min(os.cpu_count() or 1, 8))
+        paths = {n: write(cfg_params, seed, inputs["layout"],
+                          os.path.join(rundir, "input"))
+                 for n, write in ext.writers.items()}
+        traffic = dict(traffic, args=registry.resolve_args(traffic["args"],
+                                                           paths))
         setup["inputs_s"] = time.perf_counter() - t
 
         def sample(k: int, record: bool):
@@ -235,12 +245,24 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float,
         if prev is not None and failed == 0:
             from benchmark.ref.profile import reference
             log(f"sample output {outputs.size(prev) / 2 ** 20:.1f} MiB")
-            numbers = judge.judge(outputs.read_profile(prev),
-                                  reference(cfg_params, seed))
+            base = reference(cfg_params, seed)
+            numbers = judge.judge(outputs.read_profile(prev), base)
             want = outputs.digest(prev)
             numbers["samples_differing"] = sum(d != want for d in digests)
+            for name, check in ext.checks.items():
+                # a check that raises reads every number of its own as
+                # one-sided, so that its limits fail
+                try:
+                    numbers.update(registry.check_numbers(
+                        check, check.read(prev),
+                        check.reference(cfg_params, seed, inputs["layout"],
+                                        paths, base, "reference")))
+                except Exception:
+                    log(f"check {name} failed:\n{traceback.format_exc()}")
+                    numbers.update(dict.fromkeys(check.LIMITS,
+                                                 judge.ONE_SIDED))
         correct = (bool(numbers) and failed == 0 and
-                   judge.verdict(numbers))
+                   judge.verdict(numbers, ext.limits))
     finally:
         peak.close()
         shutil.rmtree(rundir, ignore_errors=True)
@@ -273,7 +295,7 @@ def run_cell(man: dict, cell: dict, seed: int, seconds: float,
         f"memory by {peak.mode}")
     log(f"process CPU seconds: window {window_cpu:.3f}, samples " +
         ", ".join(f"{c:.3f}" for c in sample_cpu))
-    result["compared"] = {k: {"value": v, "limit": judge.LIMITS[k]}
+    result["compared"] = {k: {"value": v, "limit": ext.limits[k]}
                           for k, v in numbers.items()}
     return result
 

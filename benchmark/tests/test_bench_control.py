@@ -57,3 +57,5 @@ def test_harness_judges_the_timed_path(monkeypatch, fault, expect):
     res = run.run_cell(man, cell, 4242, 0.5, False, device="cpu")
     assert res["correct"] is expect, res["compared"]
     assert res["failed"] == 0 and res["attempted"] >= 1
+    # a cell that names no checks compares the base numbers, no other
+    assert {k: v["limit"] for k, v in res["compared"].items()} == judge.LIMITS

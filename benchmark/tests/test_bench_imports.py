@@ -33,6 +33,21 @@ def test_no_module_imports_jax():
                 assert not bad, (f, bad)
 
 
+def test_the_yardstick_imports_nothing_of_the_program():
+    """The reference, the input writers and the checks (and the toy ones of
+    the tests) import neither the port nor the JAX package."""
+    bench = os.path.join(ROOT, "benchmark")
+    dirs = ("ref", "gen", "inputs", "checks", os.path.join("tests", "data"))
+    for sub in dirs:
+        for d, _, files in os.walk(os.path.join(bench, sub)):
+            for f in files:
+                if f.endswith(".py"):
+                    bad = {n.split(".")[0] for n in _imports(
+                        os.path.join(d, f))} & (FORBIDDEN |
+                                                {"instrain_tpu_torch"})
+                    assert not bad, (f, bad)
+
+
 def test_whole_name_check():
     run = load_run_module()
     saved = dict(sys.modules)
