@@ -37,6 +37,7 @@ import numpy as np
 import pandas as pd
 
 from ..io import fasta as fasta_io
+from ..obs.spans import no_span
 from .tables import _ffill_along_mm
 
 # ---------------- codon machinery ----------------
@@ -252,24 +253,50 @@ def parse_genbank_genes(path: str, gene_name: str = "gene") -> GeneData:
 # ---------------- per-scaffold gene profiling ----------------
 
 def profile_genes_for_scaffold(scaffold: str, gene_data: GeneData, stats,
-                               cumulative_snv_table: pd.DataFrame):
+                               cumulative_snv_table: pd.DataFrame,
+                               phase=no_span):
     """
     reference: GeneProfile.profile_genes_from_profile (304-350).
     `stats` is the scaffold's host-side stats from any engine: the dense
     ScaffoldStats, or the hybrid and batch engines' HybridStats.
     Returns (coverage, clonality, SNP_counts, SNP_mutation_types) tables.
+    `phase(name)` (a context manager, as profile/pipeline.py's _phase)
+    times the steps genes.coverage, genes.mutations and genes.counts.
+    A scaffold profiled to its end adds its genes and its classified SNV
+    rows to the counters (gene_counts).
     """
     gdb = gene_data.scaff2genes[scaffold]
-    cdb = calc_gene_coverage(gdb, stats)
-    cldb = calc_gene_clonality(gdb, stats)
-    sdb = characterize_snps_wrapper(cumulative_snv_table, gdb,
-                                    gene_data.gene2sequence)
-    ldb = calc_gene_snp_counts(gdb, cumulative_snv_table, sdb,
-                               gene_data.gene2sequence)
-    if len(sdb) > 0:
-        sdb = sdb.copy()
-        sdb["scaffold"] = scaffold
+    with phase("genes.coverage"):
+        cdb = calc_gene_coverage(gdb, stats)
+        cldb = calc_gene_clonality(gdb, stats)
+    with phase("genes.mutations"):
+        sdb = characterize_snps_wrapper(cumulative_snv_table, gdb,
+                                        gene_data.gene2sequence)
+        if len(sdb) > 0:
+            sdb = sdb.copy()
+            sdb["scaffold"] = scaffold
+    with phase("genes.counts"):
+        ldb = calc_gene_snp_counts(gdb, cumulative_snv_table, sdb,
+                                   gene_data.gene2sequence)
+    profile_genes_for_scaffold.genes += len(gdb)
+    profile_genes_for_scaffold.snvs_classified += len(sdb)
     return cdb, cldb, ldb, sdb
+
+
+profile_genes_for_scaffold.genes = 0
+profile_genes_for_scaffold.snvs_classified = 0
+
+
+def reset_gene_counts() -> None:
+    profile_genes_for_scaffold.genes = 0
+    profile_genes_for_scaffold.snvs_classified = 0
+
+
+def gene_counts() -> Dict[str, int]:
+    """Genes profiled and SNV rows classified (I, S, N or M) since the
+    last reset: each profile run resets them first."""
+    return {"genes": profile_genes_for_scaffold.genes,
+            "snvs_classified": profile_genes_for_scaffold.snvs_classified}
 
 
 def _gene_ranges(gdb: pd.DataFrame, L: int):
@@ -307,11 +334,15 @@ def calc_gene_coverage(gdb: pd.DataFrame, stats) -> pd.DataFrame:
 
 
 def calc_gene_clonality(gdb: pd.DataFrame, stats) -> pd.DataFrame:
-    """Per-gene per-mm nucleotide diversity (reference: 396-422)."""
+    """Per-gene per-mm nucleotide diversity (reference: 396-422). The
+    running sum is f64, as the stored-profile path's
+    (calc_gene_clonality_series): an f32 sum along a 40 kb scaffold,
+    differenced at gene ends, is off by up to a fifth of a gene's
+    diversity."""
     L = stats.pileup.length
     starts, ends, lens = _gene_ranges(gdb, L)
     clon_f, clon_has, _ = _ffill_along_mm(stats.clon, ~np.isnan(stats.clon))
-    vals = np.where(clon_has, clon_f, 0.0)
+    vals = np.where(clon_has, clon_f, 0.0).astype(np.float64)
     vsum = np.concatenate([np.zeros((vals.shape[0], 1)),
                            np.cumsum(vals, axis=1)], axis=1)
     hsum = np.concatenate([np.zeros((vals.shape[0], 1)),

@@ -81,12 +81,15 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
 # decode, filter, pileup, kernels, tables, gather, store, genome, plots)
 # add up to its wall but for the log checkpoints and scaffold selection;
 # a child span, `<parent>.<step>`, lies inside its parent (kernels.wait;
-# tables.linkage, tables.views and genes; store.outputs, store.wait;
-# genome.load, genome.coverage, genome.irep, genome.write); "genes" also
-# holds the gene file's parse; "store_reads" and "special_stream" are the
-# batch engine's two store threads, which overlap the main thread. While
-# it is a dict each span is also a torch.profiler range. None reads no
-# clock. benchmark/run.py and chip_smoke.py read it.
+# tables.linkage, tables.views; store.outputs, store.wait, store.genes;
+# genome.load, genome.coverage, genome.irep, genome.write; genes.parse,
+# genes.coverage, genes.mutations, genes.counts). With -g, "genes" is the
+# gene file's parse (genes.parse), at the top level, and each scaffold's
+# gene profile, inside "tables"; "store_reads" and "special_stream" are
+# the batch engine's two store threads, which overlap the main thread.
+# While it is a dict each span is also a torch.profiler range. None reads
+# no clock. benchmark/run.py and chip_smoke.py read it; the gene counters
+# are profile/genes.py:gene_counts, reset by each run.
 PHASES: Optional[Dict[str, float]] = None
 
 
@@ -254,6 +257,7 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     place of cfg.mesh_devices; the device of the dense path and of
     linkage is then its first."""
     spans.start_run()
+    genes_mod.reset_gene_counts()
     check_supported(cfg)
     device = resolve_device(cfg.device)
     if mesh is not None:
@@ -380,7 +384,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
 
     gene_data = None
     if cfg.gene_file is not None:
-        with _phase("genes"):
+        with _phase("genes"), _phase("genes.parse"):
             gene_data = genes_mod.parse_genes(cfg.gene_file)
 
     shards = mesh.size if mesh is not None else 1
@@ -746,7 +750,7 @@ def _result_from_stats(name, L, stats, ref_codes, cfg, device, gene_data):
         with _phase("genes"):
             try:
                 gene_results = genes_mod.profile_genes_for_scaffold(
-                    name, gene_data, stats, csnv)
+                    name, gene_data, stats, csnv, phase=_phase)
             except Exception as e:
                 # host code only: a gene failure does not drop the
                 # scaffold (reference: profile_utilities.py:388-396)
@@ -847,10 +851,12 @@ def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data,
 
     if gene_data is not None:
         # instrain_tpu/profile/pipeline.py:866-880
-        genes_mod.store_gene_tables(
-            isdir, cfg.gene_file, gene_data,
-            [cat([r["gene_results"][i] for r in finals
-                  if r["gene_results"] is not None]) for i in range(4)])
+        with _phase("store.genes"):
+            genes_mod.store_gene_tables(
+                isdir, cfg.gene_file, gene_data,
+                [cat([r["gene_results"][i] for r in finals
+                      if r["gene_results"] is not None])
+                 for i in range(4)])
 
 
 def _reads_to_snvs(stats: ScaffoldStats,

@@ -7,7 +7,12 @@ stored profile.
 The input is one synth BAM (4 scaffolds of 8 kb at 40x, seed 3) with the
 gene files of synth_genes (seed 0), sized so that its SNVs fall in every
 class: S and N in one gene, I in none, M in more than one. Tables and
-TSVs must be byte-identical; count_sites within 1e-12.
+TSVs must be byte-identical; count_sites within 1e-12. The port sums a
+gene's nucleotide diversity in f64 in both paths, as the JAX package's
+stored-profile path (calc_gene_clonality_series) does, where the JAX
+package's inline path sums in f32: so profile -g's gene_info and
+genes_clonality are held to the JAX package's profile_genes over its own
+profile, and every other table to its profile -g.
 """
 
 import gzip
@@ -31,6 +36,7 @@ TSVS = ["SNVs", "gene_info", "scaffold_info", "linkage"]
 GENE_ATTRS = ["genes_table", "genes_coverage", "genes_clonality",
               "genes_SNP_count", "SNP_mutation_types"]
 CLASSES = {"S", "N", "I", "M"}
+F64_DIVERSITY = {"gene_info", "genes_clonality"}
 
 
 @pytest.fixture(scope="module")
@@ -41,9 +47,10 @@ def gene_input(tmp_path_factory):
     return str(d), fasta, bam, fna, gb
 
 
-def _profile_pair(d, fasta, bam, engine, genes, name=""):
+def _profile_pair(d, fasta, bam, engine, genes, name="", stored_genes=None):
     """The port's profile on the CPU and the JAX package's, both with the
-    same engine and gene file."""
+    same engine and gene file, and the JAX package's profile_genes with
+    that file (or `stored_genes`) over a copy of its profile."""
     tag = f"{name}{engine}_{os.path.splitext(genes)[1][1:]}"
     port, jax = os.path.join(d, f"port_{tag}.IS"), os.path.join(
         d, f"jax_{tag}.IS")
@@ -51,7 +58,10 @@ def _profile_pair(d, fasta, bam, engine, genes, name=""):
                       "--engine", engine, "-g", genes] + FLAGS) == 0
     assert jax_main(["profile", bam, fasta, "-o", jax, "--engine", engine,
                      "-g", genes] + FLAGS) == 0
-    return port, jax
+    jax_genes = shutil.copytree(jax, os.path.join(d, f"jaxgenes_{tag}.IS"))
+    assert jax_main(["profile_genes", "-i", jax_genes,
+                     "-g", stored_genes or genes]) == 0
+    return port, jax, jax_genes
 
 
 @pytest.fixture(scope="module")
@@ -80,11 +90,16 @@ def _raw(out, attr):
         return f.read()
 
 
-def _assert_same_profiles(port, jax):
+def _assert_same_profiles(port, jax, jax_genes=None):
+    """Byte for byte: the gene diversity tables against `jax_genes` (the
+    JAX package's f64 diversity, see above), the rest against `jax`."""
+    jax_genes = jax_genes or jax
     for t in TSVS:
-        assert _tsv(port, t) == _tsv(jax, t), t
+        want = jax_genes if t in F64_DIVERSITY else jax
+        assert _tsv(port, t) == _tsv(want, t), t
     for attr in GENE_ATTRS:
-        assert _raw(port, attr) == _raw(jax, attr), attr
+        want = jax_genes if attr in F64_DIVERSITY else jax
+        assert _raw(port, attr) == _raw(want, attr), attr
 
 
 def _classes(out):
@@ -247,8 +262,8 @@ def test_profile_genes_match_jax(profiled, engine):
     """profile -g --device cpu against instrain_tpu profile -g with the
     same engine: gene_info, SNVs (with mutation_type, mutation, gene),
     the other TSVs and the stored gene tables, byte for byte."""
-    port, jax = profiled[engine]
-    _assert_same_profiles(port, jax)
+    port, jax, jax_genes = profiled[engine]
+    _assert_same_profiles(port, jax, jax_genes)
     assert _classes(port) == CLASSES
     assert _failures(port) == _failures(jax) == []
     info = pd.read_csv(os.path.join(
@@ -260,38 +275,56 @@ def test_profile_genes_match_jax(profiled, engine):
 
 
 def test_profile_genes_engines_agree(profiled):
-    """The three engines give the same gene tables."""
-    dense = profiled["dense"][0]
+    """The three engines give the same gene tables: nucl_diversity within
+    the cross-engine tolerance of tests/test_torch_batch.py (1e-6; the
+    engines' f32 clonality may differ in its last bit at a site), every
+    other column byte for byte."""
+    def read(out):
+        info = pd.read_csv(os.path.join(
+            out, "output", f"{os.path.basename(out)}_gene_info.tsv"),
+            sep="\t")
+        return info.pop("nucl_diversity").values, info.to_csv()
+
+    div, rest = read(profiled["dense"][0])
     for engine in ("hybrid", "batch"):
-        assert _tsv(profiled[engine][0], "gene_info") == _tsv(dense,
-                                                              "gene_info")
+        d, r = read(profiled[engine][0])
+        assert r == rest, engine
+        assert np.array_equal(np.isnan(d), np.isnan(div)), engine
+        m = ~np.isnan(div)
+        assert np.allclose(d[m], div[m], rtol=1e-6, atol=1e-6), engine
 
 
 def test_profile_genbank_matches_jax(gene_input):
     """A GenBank gene file (integer strands, a join(...) CDS, partial
     spans) through profile -g, against the JAX package."""
     d, fasta, bam, _, gb = gene_input
-    port, jax = _profile_pair(d, fasta, bam, "dense", gb)
-    _assert_same_profiles(port, jax)
+    port, jax, jax_genes = _profile_pair(d, fasta, bam, "dense", gb)
+    _assert_same_profiles(port, jax, jax_genes)
     assert _classes(port) == CLASSES
 
 
 def test_gene_exception_is_logged_like_jax(gene_input):
     """A gene starting past its scaffold's end fails that scaffold's gene
     profiling: logged as a GeneException, as the JAX package logs it,
-    while the scaffold's other tables stay."""
+    while the scaffold's other tables stay. The gene diversity tables
+    equal the JAX package's profile_genes with scaf_1's genes left out."""
     d, fasta, bam, fna, _ = gene_input
     bad = os.path.join(d, "bad.genes.fna")
     with open(fna) as f, open(bad, "w") as out:
         out.write(f.read())
         out.write(">scaf_1_99 # 8100 # 8400 # 1 # ID=9_9;partial=00\n" +
                   "A" * 301 + "\n")
-    port, jax = _profile_pair(d, fasta, bam, "hybrid", bad, name="bad_")
+    others = os.path.join(d, "others.genes.fna")
+    with open(fna) as f, open(others, "w") as out:
+        out.write("".join(">" + r for r in f.read().split(">")[1:]
+                          if not r.startswith("scaf_1_")))
+    port, jax, jax_genes = _profile_pair(d, fasta, bam, "hybrid", bad,
+                                         name="bad_", stored_genes=others)
     assert _failures(port) == _failures(jax)
     assert len(_failures(port)) == 1
     assert re.match(r"GeneException scaf_1 ", _failures(port)[0])
     assert "scaf_1" in PD.ProfileDir(port).get("scaffold_list")
-    _assert_same_profiles(port, jax)
+    _assert_same_profiles(port, jax, jax_genes)
 
 
 # ---------------------------------------------------------------- profile_genes
@@ -303,7 +336,7 @@ def test_profile_genes_command_matches_jax(gene_input, profiled, tmp_path,
     clonT are pickles (where h5py is missing) it gives the same bytes."""
     gb = gene_input[4]
     port, jax = (shutil.copytree(p, str(tmp_path / os.path.basename(p)))
-                 for p in profiled["dense"])
+                 for p in profiled["dense"][:2])
     assert port_main(["profile_genes", "-i", port, "-g", gb]) == 0
     assert jax_main(["profile_genes", "-i", jax, "-g", gb]) == 0
     _assert_same_profiles(port, jax)

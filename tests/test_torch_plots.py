@@ -8,8 +8,10 @@ The port's figures (plotting/) against the JAX package's.
   - The figures: under SOURCE_DATE_EPOCH=0 (matplotlib then writes a
     fixed creation date), the port's make_plots over `instrain_tpu_torch
     profile -g --device cpu` and the JAX package's over `instrain_tpu
-    profile -g`, of one synth input (4 scaffolds of 8 kb at 60x, the genes
-    of synth_genes), write the same nine PDFs byte for byte; plot 10 the
+    profile -g` (its gene tables made again by its `profile_genes`, as
+    tests/test_torch_genes.py holds them), of one synth input (4
+    scaffolds of 8 kb at 60x, the genes of synth_genes), write the same
+    nine PDFs byte for byte; plot 10 the
     same over both packages' `compare -s` of three synth_samples
     profiles. Profile and compare without --skip_plot_generation draw
     them; without matplotlib they log the failure, exit 0 and write the
@@ -52,7 +54,8 @@ DENDROGRAMS = "inStrainCompare_dendrograms.pdf"
 def profiles(tmp_path_factory):
     """One synth input with genes and a two-genome .stb, profiled by each
     package into p.IS under a directory of its own (the figures' file
-    names carry the basename), with --skip_plot_generation."""
+    names carry the basename), with --skip_plot_generation; the JAX
+    package's gene tables then made again by its profile_genes."""
     d = tmp_path_factory.mktemp("plots")
     fasta, bam, _ = synth(str(d), S=4, L=8000, COV=60, seed=3)
     genes, _ = synth_genes(fasta, seed=0)
@@ -67,6 +70,9 @@ def profiles(tmp_path_factory):
         out[tag] = str(d / tag / "p.IS")
         assert runner(["profile", bam, fasta, "-o", out[tag]] + flags +
                       extra) == 0
+    # the JAX package's gene tables from its stored-profile path, whose
+    # f64 diversity sum the port's profile -g shares (test_torch_genes.py)
+    assert jax_main(["profile_genes", "-i", out["jax"], "-g", genes]) == 0
     return str(d), fasta, bam, genes, stb, out
 
 

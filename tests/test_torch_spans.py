@@ -7,6 +7,12 @@ with genome-wide, as tests/test_torch_stream.py runs the engine:
   is named `<parent>.<step>`; every PHASES total is the sum of its spans;
   the children of genome, tables, store and kernels add up to no more
   than their parent;
+- with -g (a second profile, over synth_genes' genes), genes.parse,
+  genes.coverage, genes.mutations and genes.counts lie inside a genes
+  span (the parse's at the top level, each scaffold's inside tables) and
+  store.genes inside store, each group adding up to no more than its
+  parent; the gene counters equal gene_info's rows and the classified
+  SNV rows, and a second run counts anew;
 - store_reads and special_stream run on the store threads, store.wait
   and registry on the main thread;
 - with PHASES None nothing is recorded, and neither the clock nor
@@ -25,6 +31,7 @@ import sys
 import threading
 import types
 
+import pandas as pd
 import pytest
 import torch
 
@@ -32,8 +39,10 @@ from instrain_tpu_torch.cli import main as port_main
 from instrain_tpu_torch.compare import pipeline as CP
 from instrain_tpu_torch.obs import spans
 from instrain_tpu_torch.profile import compact as PC
+from instrain_tpu_torch.profile import genes as PG
 from instrain_tpu_torch.profile import pipeline as PP
-from instrain_tpu_torch.synth import synth
+from instrain_tpu_torch.store.profile_dir import ProfileDir
+from instrain_tpu_torch.synth import synth, synth_genes
 
 FLAGS = ["--device", "cpu", "--engine", "batch", "--skip_plot_generation"]
 STEPS = {"genome": {"genome.load", "genome.coverage", "genome.irep",
@@ -41,6 +50,11 @@ STEPS = {"genome": {"genome.load", "genome.coverage", "genome.irep",
          "tables": {"tables.linkage", "tables.views"},
          "store": {"store.outputs", "store.wait"},
          "kernels": {"kernels.wait"}}
+# the same steps in the profile with -g
+GENE_STEPS = {"genes": {"genes.parse", "genes.coverage", "genes.mutations",
+                        "genes.counts"},
+              "tables": {"tables.linkage", "tables.views"},
+              "store": {"store.outputs", "store.wait", "store.genes"}}
 
 
 class _Event:
@@ -65,11 +79,9 @@ def data(tmp_path_factory):
     return d, fasta, bam
 
 
-@pytest.fixture(scope="module")
-def traced(data):
+def _traced(d, fasta, bam, out, flags):
     """A batch profile with PHASES a dict, under torch.profiler: its
     PHASES, its spans, its run id and its chrome trace's ranges."""
-    d, fasta, bam = data
     dispatch = PC._dispatch_chunk
 
     def with_event(*a, **k):
@@ -84,18 +96,37 @@ def traced(data):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             assert port_main(["profile", bam, fasta, "-o",
-                              str(d / "traced.IS")] + FLAGS) == 0
+                              str(d / out)] + FLAGS + flags) == 0
         phases = PP.PHASES
     finally:
         PP.PHASES = None
         mp.undo()
-    path = str(d / "trace.json")
+    path = str(d / (out + ".trace.json"))
     prof.export_chrome_trace(path)
     with open(path) as f:
         ranges = [e["name"] for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "user_annotation" and
                   e.get("ph") == "X"]
     return phases, list(spans.RECORD.spans), spans.RECORD.run, ranges
+
+
+@pytest.fixture(scope="module")
+def traced(data):
+    d, fasta, bam = data
+    return _traced(d, fasta, bam, "traced.IS", [])
+
+
+@pytest.fixture(scope="module")
+def genes_file(data):
+    return synth_genes(data[1], seed=0)[0]
+
+
+@pytest.fixture(scope="module")
+def traced_genes(data, genes_file):
+    """The traced profile with -g, its gene counters read after it."""
+    d, fasta, bam = data
+    return _traced(d, fasta, bam, "genes.IS", ["-g", genes_file]) + (
+        PG.gene_counts(),)
 
 
 def test_children_inside_parents(traced):
@@ -119,12 +150,53 @@ def test_phases_are_span_sums(traced):
             sum(s.seconds for s in record if s.name == name), rel=1e-12)
 
 
-@pytest.mark.parametrize("parent", sorted(STEPS))
-def test_steps_within_parent(traced, parent):
-    phases, _, _, _ = traced
+@pytest.mark.parametrize("parent", sorted(STEPS) +
+                         [f"g:{p}" for p in sorted(GENE_STEPS)])
+def test_steps_within_parent(request, parent):
+    """`g:<parent>`: in the profile with -g."""
+    with_genes = parent.startswith("g:")
+    parent = parent[2:] if with_genes else parent
+    phases = request.getfixturevalue(
+        "traced_genes" if with_genes else "traced")[0]
     steps = {k for k in phases if k.startswith(parent + ".")}
-    assert steps == STEPS[parent]
+    assert steps == (GENE_STEPS if with_genes else STEPS)[parent]
     assert sum(phases[k] for k in steps) <= phases[parent]
+
+
+def test_gene_steps_inside_genes_spans(traced_genes):
+    """Each genes.<step> span lies inside a genes span (children_inside_
+    parents' rule); the parse's genes span is at the top level and each
+    scaffold's inside tables; store.genes inside store."""
+    _, record, _, _, _ = traced_genes
+    parents = {}
+    for s in record:
+        if s.name.startswith("genes.") or s.name == "store.genes":
+            p = record[s.parent]
+            assert s.name.startswith(p.name + "."), (s.name, p.name)
+            assert s.thread == p.thread
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+            parents.setdefault(s.name, set()).add(
+                None if p.parent is None else record[p.parent].name)
+    assert parents == {"genes.parse": {None}, "genes.coverage": {"tables"},
+                       "genes.mutations": {"tables"},
+                       "genes.counts": {"tables"}, "store.genes": {None}}
+
+
+def test_gene_counters(traced_genes, data, genes_file):
+    """Genes profiled equal gene_info's rows (every gene of the profiled
+    scaffolds is covered), SNV rows classified the stored mutation types';
+    a second run counts anew, from 0."""
+    d, fasta, bam = data
+    counts = traced_genes[4]
+    isdir = ProfileDir(str(d / "genes.IS"))
+    gene_info = pd.read_csv(isdir.get_output_base() + "gene_info.tsv",
+                            sep="\t")
+    assert counts["genes"] == len(gene_info) > 0
+    assert counts["snvs_classified"] == len(
+        isdir.get("SNP_mutation_types")) > 0
+    assert port_main(["profile", bam, fasta, "-o", str(d / "again.IS"),
+                      "-g", genes_file] + FLAGS) == 0
+    assert PG.gene_counts() == counts
 
 
 @pytest.mark.parametrize("name,thread", [
@@ -141,15 +213,24 @@ def test_span_threads(traced, name, thread):
 
 
 @pytest.mark.parametrize("name", ["registry", "genome.irep", "store.wait",
-                                  "kernels.wait", "tables.views"])
-def test_trace_ranges(traced, name):
-    _, record, _, ranges = traced
+                                  "kernels.wait", "tables.views",
+                                  "genes.parse", "genes.coverage",
+                                  "genes.mutations", "genes.counts",
+                                  "store.genes"])
+def test_trace_ranges(request, name):
+    """The gene steps' ranges in the profile with -g."""
+    with_genes = name.startswith("genes") or name == "store.genes"
+    _, record, _, ranges = request.getfixturevalue(
+        "traced_genes" if with_genes else "traced")[:4]
     n = sum(s.name == name for s in record)
     assert n > 0 and ranges.count(name) == n
 
 
-def test_off_records_nothing(data, monkeypatch):
+@pytest.mark.parametrize("genes", [False, True], ids=["plain", "genes"])
+def test_off_records_nothing(request, data, monkeypatch, genes):
     d, fasta, bam = data
+    flags = (["-g", request.getfixturevalue("genes_file")] if genes
+             else [])
     calls = []
 
     def clock():
@@ -165,8 +246,8 @@ def test_off_records_nothing(data, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", record_function)
     assert PP.PHASES is None and CP.PHASES is None
     run = spans.RECORD.run
-    assert port_main(["profile", bam, fasta, "-o", str(d / "off.IS")] +
-                     FLAGS) == 0
+    assert port_main(["profile", bam, fasta, "-o",
+                      str(d / f"off{len(flags)}.IS")] + FLAGS + flags) == 0
     assert spans.RECORD.run == run + 1
     assert spans.RECORD.spans == [] and calls == []
 
