@@ -5,7 +5,9 @@ the package (listed in .gitignore):
   - the BAM decoder, from the repository's native/bam.cc and baq.cc, with
     g++ (native/Makefile's flags with -mfma in place of -march=native on
     x86-64, so the library runs on any host with FMA and contracts the
-    float products as the JAX package's build does);
+    float products as the JAX package's build does), and in the same
+    library the port's own host C++ (csrc/host/*.cc: the genes' per-range
+    sums);
   - the CUDA kernels, from csrc/*.cu, with nvcc for sm_90a (Hopper).
 
 Each library's file name carries a hash of its sources and flags, so an
@@ -129,7 +131,8 @@ def _has_libdeflate() -> bool:
 
 
 def native_io_library(use_libdeflate: Optional[bool] = None) -> str:
-    """The BAM decoder (native/bam.cc, baq.cc). Uses libdeflate where its
+    """The BAM decoder (native/bam.cc, baq.cc) and the port's host C++
+    (csrc/host/*.cc). Uses libdeflate where its
     header and library are installed, else csrc/zlib_shim/libdeflate.h,
     which implements the one libdeflate call bam.cc makes over zlib
     (use_libdeflate=False forces the shim)."""
@@ -137,7 +140,10 @@ def native_io_library(use_libdeflate: Optional[bool] = None) -> str:
 
 
 def _native_io_spec(use_libdeflate: Optional[bool] = None) -> Spec:
-    sources = [os.path.join(NATIVE_DIR, f) for f in ("bam.cc", "baq.cc")]
+    host = os.path.join(CSRC_DIR, "host")
+    sources = ([os.path.join(NATIVE_DIR, f) for f in ("bam.cc", "baq.cc")] +
+               sorted(os.path.join(host, f) for f in os.listdir(host)
+                      if f.endswith(".cc")))
     headers = [os.path.join(NATIVE_DIR, "instrain_io.h")]
     if use_libdeflate is None:
         use_libdeflate = _has_libdeflate()

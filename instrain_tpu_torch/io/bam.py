@@ -101,6 +101,13 @@ def _bind(lib):
         ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_uint8,
         ct.POINTER(ct.c_int32), ct.POINTER(ct.c_uint8),
         ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64), ct.c_int64]
+    lib.gr_range_sums.restype = ct.c_int
+    lib.gr_range_sums.argtypes = [
+        ct.c_void_p, ct.c_int, ct.c_int64, ct.c_int64,
+        ct.POINTER(ct.c_float), ct.c_int64, ct.c_int64, ct.c_int32,
+        ct.c_int64, ct.POINTER(ct.c_int64), ct.c_int64,
+        ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
+        ct.POINTER(ct.c_int64), ct.POINTER(ct.c_double)]
     lib.bd_baq_one.restype = ct.c_int
     lib.bd_baq_one.argtypes = [
         ct.POINTER(ct.c_uint8), ct.c_int64, ct.c_int64,

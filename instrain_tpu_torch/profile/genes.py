@@ -19,13 +19,15 @@ The reference's quirks, kept byte for byte:
 
 The reference's per-row loops lie on profile's main path and are
 vectorised here with the same arithmetic: count_sites sums a per-codon
-table in codon order; the per-gene coverage, clonality and SNV counts
-take all genes of an mm level at once; characterize_snps translates only
-the codon an SNV changes.
+table in codon order; the per-gene coverage and clonality come from one
+native pass over a scaffold's positions per mm level (gene_range_sums);
+the SNV counts take all genes of an mm level at once; characterize_snps
+translates only the codon an SNV changes.
 """
 
 from __future__ import annotations
 
+import ctypes as ct
 import functools
 import logging
 import re
@@ -37,8 +39,8 @@ import numpy as np
 import pandas as pd
 
 from ..io import fasta as fasta_io
+from ..io.bam import _load_lib
 from ..obs.spans import no_span
-from .tables import _ffill_along_mm
 
 # ---------------- codon machinery ----------------
 
@@ -262,13 +264,14 @@ def profile_genes_for_scaffold(scaffold: str, gene_data: GeneData, stats,
     Returns (coverage, clonality, SNP_counts, SNP_mutation_types) tables.
     `phase(name)` (a context manager, as profile/pipeline.py's _phase)
     times the steps genes.coverage, genes.mutations and genes.counts.
-    A scaffold profiled to its end adds its genes and its classified SNV
-    rows to the counters (gene_counts).
+    A scaffold profiled to its end adds its genes, its classified SNV
+    rows and its M x L cells to the counters (gene_counts).
     """
     gdb = gene_data.scaff2genes[scaffold]
     with phase("genes.coverage"):
-        cdb = calc_gene_coverage(gdb, stats)
-        cldb = calc_gene_clonality(gdb, stats)
+        sums = gene_range_sums(gdb, stats)
+        cdb = calc_gene_coverage(sums)
+        cldb = calc_gene_clonality(sums)
     with phase("genes.mutations"):
         sdb = characterize_snps_wrapper(cumulative_snv_table, gdb,
                                         gene_data.gene2sequence)
@@ -280,23 +283,28 @@ def profile_genes_for_scaffold(scaffold: str, gene_data: GeneData, stats,
                                    gene_data.gene2sequence)
     profile_genes_for_scaffold.genes += len(gdb)
     profile_genes_for_scaffold.snvs_classified += len(sdb)
+    profile_genes_for_scaffold.coverage_cells += len(sums.mm) * \
+        stats.pileup.length
     return cdb, cldb, ldb, sdb
 
 
-profile_genes_for_scaffold.genes = 0
-profile_genes_for_scaffold.snvs_classified = 0
+_GENE_COUNTERS = ("genes", "snvs_classified", "coverage_cells")
 
 
 def reset_gene_counts() -> None:
-    profile_genes_for_scaffold.genes = 0
-    profile_genes_for_scaffold.snvs_classified = 0
+    for k in _GENE_COUNTERS:
+        setattr(profile_genes_for_scaffold, k, 0)
+
+
+reset_gene_counts()
 
 
 def gene_counts() -> Dict[str, int]:
-    """Genes profiled and SNV rows classified (I, S, N or M) since the
-    last reset: each profile run resets them first."""
-    return {"genes": profile_genes_for_scaffold.genes,
-            "snvs_classified": profile_genes_for_scaffold.snvs_classified}
+    """Genes profiled, SNV rows classified (I, S, N or M) and the
+    mm level x position cells that gene_range_sums walked, since the last
+    reset: each profile run resets them first."""
+    return {k: getattr(profile_genes_for_scaffold, k)
+            for k in _GENE_COUNTERS}
 
 
 def _gene_ranges(gdb: pd.DataFrame, L: int):
@@ -306,62 +314,112 @@ def _gene_ranges(gdb: pd.DataFrame, L: int):
     return starts, ends, lens
 
 
-def calc_gene_coverage(gdb: pd.DataFrame, stats) -> pd.DataFrame:
-    """Per-gene per-mm coverage/breadth (reference: 352-371), from the
-    pileup's true-shaped counts."""
-    L = stats.pileup.length
-    starts, ends, lens = _gene_ranges(gdb, L)
-    total = stats.total.astype(np.float64)         # [M, L] cumulative
-    exact = stats.pileup.counts_exact.sum(axis=1)
-    covered = np.cumsum(exact, axis=0) > 0         # [M, L]
+def _prefix_index(idx: np.ndarray, L: int) -> np.ndarray:
+    """`idx` as numpy reads it into the L + 1 prefix sums of a row: a
+    negative index counts from the end, one outside raises numpy's
+    IndexError (logged as the scaffold's GeneException)."""
+    bad = np.flatnonzero((idx < -(L + 1)) | (idx > L))
+    if len(bad):
+        raise IndexError(f"index {idx[bad[0]]} is out of bounds for axis 1 "
+                         f"with size {L + 1}")
+    return np.where(idx < 0, idx + L + 1, idx)
 
-    csum = np.concatenate([np.zeros((total.shape[0], 1)),
-                           np.cumsum(total, axis=1)], axis=1)
-    bsum = np.concatenate([np.zeros((covered.shape[0], 1)),
-                           np.cumsum(covered, axis=1)], axis=1)
-    genes = gdb["gene"].tolist()
-    table = defaultdict(list)
-    for mi, mm in enumerate(stats.mm_values):
-        if not covered[mi].any():
-            continue  # reference skips empty cumulative levels (358-360)
-        gcov = csum[mi, ends + 1] - csum[mi, starts]
-        gbre = bsum[mi, ends + 1] - bsum[mi, starts]
-        table["gene"].extend(genes)
-        table["coverage"].extend((gcov / lens).tolist())
-        table["breadth"].extend((gbre / lens).tolist())
-        table["mm"].extend([int(mm)] * len(genes))
+
+@dataclass
+class GeneRangeSums:
+    """One scaffold's per-gene sums at each mm level (gene_range_sums):
+    [M, G] over the positions start..end (clipped to the scaffold)."""
+
+    genes: np.ndarray          # object [G], in the gene table's order
+    lens: np.ndarray           # [G] lengths, unclipped
+    mm: np.ndarray             # int64 [M]
+    coverage: np.ndarray       # int64: sum of the cumulative coverage
+    breadth: np.ndarray        # int64: positions covered
+    clon_n: np.ndarray         # int64: positions with a clonality
+    clon_sum: np.ndarray       # float64: sum of the filled clonality
+    level_covered: np.ndarray  # bool [M]: the level covers a position
+    level_clon: np.ndarray     # bool [M]: the level has a clonality
+
+
+def gene_range_sums(gdb: pd.DataFrame, stats) -> GeneRangeSums:
+    """The genes' coverage, breadth and clonality sums at every mm level
+    of a scaffold, from one native pass over its positions per level
+    (csrc/host/gene_ranges.cc) that keeps running sums only at the genes'
+    bounds; a gene's sum is the difference of its two bounds', as the
+    reference's prefix sums give it. total (int32 or int64) and clon
+    (float32) are read in place, row stride and all. The clonality is
+    forward-filled along mm (a position keeps the value of the highest
+    level <= m that has one, as tables._ffill_along_mm) and summed in
+    float64 from the scaffold's start: an f32 sum along a 40 kb
+    scaffold, differenced at gene ends, is off by up to a fifth of a
+    gene's diversity."""
+    L = stats.pileup.length
+    M = len(stats.mm_values)
+    starts, ends, lens = _gene_ranges(gdb, L)
+    hi = _prefix_index(ends + 1, L)
+    lo = _prefix_index(starts, L)
+    bounds = np.unique(np.concatenate([lo, hi, [L]])).astype(np.int64)
+    total, clon = stats.total, stats.clon
+    if total.dtype not in (np.int32, np.int64) or clon.dtype != np.float32:
+        raise TypeError(f"total {total.dtype} / clon {clon.dtype}: want "
+                        "int32 or int64 / float32")
+    for a in (total, clon):
+        if a.shape[0] < M or a.shape[1] < L:
+            raise ValueError(f"{a.shape} holds less than [{M}, {L}]")
+    nb = len(bounds)
+    out = [np.empty((M, nb), dtype=np.int64) for _ in range(3)]
+    s_clon = np.empty((M, nb), dtype=np.float64)
+    i64 = ct.POINTER(ct.c_int64)
+    rc = _load_lib().gr_range_sums(
+        total.ctypes.data, int(total.dtype == np.int64),
+        total.strides[0] // total.itemsize, total.strides[1] // total.itemsize,
+        clon.ctypes.data_as(ct.POINTER(ct.c_float)),
+        clon.strides[0] // clon.itemsize, clon.strides[1] // clon.itemsize,
+        M, L, bounds.ctypes.data_as(i64), nb,
+        *(o.ctypes.data_as(i64) for o in out),
+        s_clon.ctypes.data_as(ct.POINTER(ct.c_double)))
+    if rc != 0:
+        raise ValueError(f"gene bounds not sorted within [0, {L}]")
+    a = np.searchsorted(bounds, lo)
+    b = np.searchsorted(bounds, hi)
+    cov, brd, n_clon = (o[:, b] - o[:, a] for o in out)
+    return GeneRangeSums(
+        genes=gdb["gene"].to_numpy(dtype=object), lens=lens,
+        mm=np.asarray(stats.mm_values, dtype=np.int64),
+        coverage=cov, breadth=brd, clon_n=n_clon,
+        clon_sum=s_clon[:, b] - s_clon[:, a],
+        level_covered=out[1][:, -1] > 0, level_clon=out[2][:, -1] > 0)
+
+
+def _per_level_table(sums: GeneRangeSums, kept: np.ndarray,
+                     columns: Dict[str, np.ndarray]) -> pd.DataFrame:
+    """Rows gene by gene within each kept level, levels in mm order; no
+    kept level gives an empty table, as the reference's."""
+    if not kept.any():
+        return pd.DataFrame()
+    table = {"gene": np.tile(sums.genes, int(kept.sum()))}
+    table.update((k, v[kept].ravel()) for k, v in columns.items())
+    table["mm"] = np.repeat(sums.mm[kept], len(sums.genes))
     return pd.DataFrame(table)
 
 
-def calc_gene_clonality(gdb: pd.DataFrame, stats) -> pd.DataFrame:
-    """Per-gene per-mm nucleotide diversity (reference: 396-422). The
-    running sum is f64, as the stored-profile path's
-    (calc_gene_clonality_series): an f32 sum along a 40 kb scaffold,
-    differenced at gene ends, is off by up to a fifth of a gene's
-    diversity."""
-    L = stats.pileup.length
-    starts, ends, lens = _gene_ranges(gdb, L)
-    clon_f, clon_has, _ = _ffill_along_mm(stats.clon, ~np.isnan(stats.clon))
-    vals = np.where(clon_has, clon_f, 0.0).astype(np.float64)
-    vsum = np.concatenate([np.zeros((vals.shape[0], 1)),
-                           np.cumsum(vals, axis=1)], axis=1)
-    hsum = np.concatenate([np.zeros((vals.shape[0], 1)),
-                           np.cumsum(clon_has, axis=1)], axis=1)
-    genes = gdb["gene"].tolist()
-    table = defaultdict(list)
-    for mi, mm in enumerate(stats.mm_values):
-        if not clon_has[mi].any():
-            continue  # reference skips levels with no clonality (402-404)
-        v = vsum[mi, ends + 1] - vsum[mi, starts]
-        h = hsum[mi, ends + 1] - hsum[mi, starts]
-        counted = h > 0
-        micro = np.full(len(h), np.nan)
-        micro[counted] = 1 - (v[counted] / h[counted])
-        table["gene"].extend(genes)
-        table["nucl_diversity"].extend(micro.tolist())
-        table["breadth_minCov"].extend((h / lens).tolist())
-        table["mm"].extend([int(mm)] * len(genes))
-    return pd.DataFrame(table)
+def calc_gene_coverage(sums: GeneRangeSums) -> pd.DataFrame:
+    """Per-gene per-mm coverage/breadth (reference: 352-371); levels that
+    cover no position of the scaffold give no rows (358-360)."""
+    return _per_level_table(sums, sums.level_covered,
+                            {"coverage": sums.coverage / sums.lens,
+                             "breadth": sums.breadth / sums.lens})
+
+
+def calc_gene_clonality(sums: GeneRangeSums) -> pd.DataFrame:
+    """Per-gene per-mm nucleotide diversity (reference: 396-422); levels
+    with no clonality on the scaffold give no rows (402-404), a gene
+    with none NaN."""
+    n = sums.clon_n
+    micro = np.where(n > 0, 1 - sums.clon_sum / np.maximum(n, 1), np.nan)
+    return _per_level_table(sums, sums.level_clon,
+                            {"nucl_diversity": micro,
+                             "breadth_minCov": n / sums.lens})
 
 
 def characterize_snps_wrapper(Ldb: pd.DataFrame, gdb: pd.DataFrame,

@@ -11,8 +11,9 @@ with genome-wide, as tests/test_torch_stream.py runs the engine:
   genes.coverage, genes.mutations and genes.counts lie inside a genes
   span (the parse's at the top level, each scaffold's inside tables) and
   store.genes inside store, each group adding up to no more than its
-  parent; the gene counters equal gene_info's rows and the classified
-  SNV rows, and a second run counts anew;
+  parent; the gene counters equal gene_info's rows, the classified SNV
+  rows and the levels x positions of the scaffolds with genes, and a
+  second run counts anew;
 - store_reads and special_stream run on the store threads, store.wait
   and registry on the main thread;
 - with PHASES None nothing is recorded, and neither the clock nor
@@ -197,6 +198,21 @@ def test_gene_counters(traced_genes, data, genes_file):
     assert port_main(["profile", bam, fasta, "-o", str(d / "again.IS"),
                       "-g", genes_file] + FLAGS) == 0
     assert PG.gene_counts() == counts
+
+
+def test_gene_coverage_cells(traced_genes, data):
+    """coverage_cells is the sum of M x L over the profiled scaffolds
+    with genes: each one's mm levels (its rows in the cumulative scaffold
+    table, one per level) times its length. A second run reads the same
+    (test_gene_counters compares every counter)."""
+    isdir = ProfileDir(str(data[0] / "genes.IS"))
+    table = isdir.get("cumulative_scaffold_table")
+    with_genes = set(isdir.get("genes_table")["scaffold"])
+    rows = table[table["scaffold"].isin(with_genes)]
+    assert set(rows["scaffold"]) == with_genes & set(table["scaffold"])
+    assert rows.groupby("scaffold")["mm"].nunique().equals(
+        rows.groupby("scaffold").size())
+    assert traced_genes[4]["coverage_cells"] == int(rows["length"].sum()) > 0
 
 
 @pytest.mark.parametrize("name,thread", [
