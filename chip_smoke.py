@@ -769,8 +769,7 @@ def phase_batch(torch, card):
         try:
             res = PC._finish_chunk(PC._dispatch_chunk(
                 items, torch.as_tensor(g["null_lut"], device=dev),
-                torch.as_tensor(g["freq_lut"], device=dev), 5, 50, 0, False,
-                dev))
+                torch.as_tensor(g["freq_lut"], device=dev), 5, 50, 0, dev))
         finally:
             PC._fold_keys = fold
         for s, st in res:

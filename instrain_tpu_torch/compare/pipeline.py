@@ -48,17 +48,10 @@ from ..store.profile_dir import ProfileDir
 
 BASE_IDX = {"A": 0, "C": 1, "T": 2, "G": 3}
 
-# Phase accounting: set to a dict to record the spans of a compare run
-# (obs/spans.py, as profile/pipeline.py:PHASES) and add their seconds up
-# per name (load, overlap, pairs, pooling, store, plots); None reads no
-# clock. chip_smoke.py reads it.
+# Phase accounting, as profile/pipeline.py:PHASES: chip_smoke.py sets this
+# to a dict before a run and reads it after; compare() hands it to
+# spans.start_run. None records nothing.
 PHASES: Optional[Dict[str, float]] = None
-
-
-def _phase(name: str):
-    """A span of the compare run named `name`: recorded while PHASES is
-    a dict."""
-    return spans.span(name, PHASES)
 
 
 @dataclass
@@ -92,7 +85,15 @@ def check_supported(cfg: CompareConfig) -> None:
 def compare(inputs: List[str], cfg: CompareConfig,
             output: Optional[str] = None) -> ProfileDir:
     """Run the full compare operation."""
-    spans.start_run()
+    spans.start_run(PHASES)
+    try:
+        return _compare(inputs, cfg, output)
+    finally:
+        spans.end_run()
+
+
+def _compare(inputs: List[str], cfg: CompareConfig,
+             output: Optional[str]) -> ProfileDir:
     check_supported(cfg)
     device = resolve_device(cfg.device)
     out = ProfileDir(output or cfg.output)
@@ -148,7 +149,7 @@ def compare(inputs: List[str], cfg: CompareConfig,
     if not cfg.skip_popANI:
         for gi, grp in enumerate(_groups(SCs, cfg.group_length)):
             logging.info(f"Running group {gi + 1}")
-            with _phase("load"):
+            with spans.span("load"):
                 cache = _GroupCache(grp)
             for sc, pre in _group_overlaps(grp, cache, cfg, device):
                 try:
@@ -178,7 +179,7 @@ def compare(inputs: List[str], cfg: CompareConfig,
         for c in ("consensus_SNP", "population_SNP"):
             mismatch_db[c] = mismatch_db[c].astype(bool)
 
-    with _phase("store"):
+    with spans.span("store"):
         if not cfg.skip_popANI:
             out.store("comparisonsTable", comparison_db, "pandas",
                       "Comparisons between the requested IS objects")
@@ -195,10 +196,10 @@ def compare(inputs: List[str], cfg: CompareConfig,
             raise ValueError(
                 f"-b/--bams got {len(cfg.bams)} BAMs for {len(names)} "
                 f"input profiles; they must pair up 1:1 in order")
-        with _phase("pooling"):
+        with spans.span("pooling"):
             dst, pmdb = run_pooling(SCs, dict(zip(names, cfg.bams)),
                                     cfg.processes)
-        with _phase("store"):
+        with spans.span("store"):
             out.store("DSTdb", dst, "pickle",
                       "Dense SNV table (from pooling)")
             out.store("PMdb", pmdb, "pickle",
@@ -206,7 +207,7 @@ def compare(inputs: List[str], cfg: CompareConfig,
             gen.generate(out, "pooled_SNV_info")
             gen.generate(out, "pooled_SNV_data")
 
-    with _phase("store"):
+    with spans.span("store"):
         if not cfg.skip_popANI:
             gen.generate(out, "comparisonsTable",
                          force_compress=cfg.force_compress)
@@ -223,7 +224,7 @@ def compare(inputs: List[str], cfg: CompareConfig,
     if rolled_up and not cfg.skip_plot_generation:
         # plot 10 from the stored tables (instrain_tpu/compare/
         # pipeline.py:217-222); a failure is logged, never raised
-        with _phase("plots"):
+        with spans.span("plots"):
             try:
                 from ..plotting.controller import make_plots
                 make_plots(out, plots=["10"])
@@ -454,7 +455,7 @@ def _group_overlaps(grp, cache: _GroupCache, cfg: CompareConfig,
     group's device counts (None: the host popcount's). A scaffold whose
     masks fail is logged as a CompareException and left out."""
     pres = []
-    with _phase("overlap"):
+    with spans.span("overlap"):
         for sc in grp:
             try:
                 datas = [cache.data(p, sc.scaffold) for p in sc.profiles]
@@ -489,11 +490,11 @@ def compare_scaffold(sc: ScaffoldComparison, null_lut, freq_lut,
     pair2mm2overlap = {}
     n = len(sc.names)
     if pre["counts"] is None:
-        with _phase("overlap"):
+        with spans.span("overlap"):
             pre["counts"] = host_overlap_counts(pre["words"])
     pre["both"], pre["single"] = pre["counts"]
 
-    with _phase("pairs"):
+    with spans.span("pairs"):
         snvs = [_SampleSNVs(d.snp) for d in datas]
         for i in range(n):
             for j in range(i, n):

@@ -7,13 +7,27 @@ A span is one timed step of a run: its name, its start and end
 span open on the same thread when it opened; None at a thread's root) and
 the run it belongs to. A child is named `<parent>.<step>`.
 
-`span(name, phases)` is switched on by `phases`, the caller's phase dict:
-while it is a dict, the span is recorded, adds its seconds to
-phases[name] and enters torch.profiler.record_function(name), so that a
-torch.profiler trace holds it as a range on the clock of the kernels and
-copies (PyTorch's profiler is thread-local: a trace started on the main
-thread holds the main thread's ranges). While it is None, the span reads
-no clock, calls nothing and records nothing.
+The switch is the run's phase dict, which start_run(phases) takes and
+end_run() drops. While a run holds a dict, `span(name)` is recorded, adds
+its seconds to phases[name] and enters
+torch.profiler.record_function(name), so that a torch.profiler trace
+holds it as a range on the clock of the kernels and copies (PyTorch's
+profiler is thread-local: a trace started on the main thread holds the
+main thread's ranges). While there is none (outside a run, or in a run
+started with None), a span reads no clock, calls nothing and records
+nothing.
+
+The profile run's spans: registry (its set-up), decode, filter, pileup,
+kernels (kernels.wait), tables (tables.linkage, tables.views), gather,
+store (store.outputs, store.wait, store.genes), genome (genome.load,
+genome.coverage, genome.irep, genome.write) and plots on the main
+thread; with -g, genes: the gene file's parse (genes.parse) at the top
+level, and each scaffold's gene profile (genes.coverage,
+genes.mutations, genes.counts) inside tables; store_reads and
+special_stream on the batch engine's two store threads. The main
+thread's top-level spans add up to its wall but for the log checkpoints
+and scaffold selection. The compare run's: load, overlap, pairs,
+pooling, store and plots.
 
 RECORD holds the spans of the current run, in the order they opened;
 start_run() gives it a new list and the next run id (each profile and
@@ -48,11 +62,13 @@ class Span:
 
 
 class Record:
-    """The spans of one run (`run`: its id), in the order they opened."""
+    """The spans of one run (`run`: its id), in the order they opened,
+    and its phase dict (None: nothing is recorded)."""
 
     def __init__(self):
         self.run = 0
         self.spans: List[Span] = []
+        self.phases: Optional[Dict[str, float]] = None
 
 
 RECORD = Record()
@@ -61,13 +77,22 @@ _OPEN = threading.local()  # .stack: indices of this thread's open spans
 _OFF = nullcontext()
 
 
-def start_run() -> int:
-    """Start a run's record: a new list of spans and the next run id,
-    which it returns."""
+def start_run(phases: Optional[Dict[str, float]]) -> int:
+    """Start a run's record: a new list of spans, the next run id, which
+    it returns, and `phases`, the dict its spans add their seconds to
+    (None: the run records nothing)."""
     with _LOCK:
         RECORD.run += 1
         RECORD.spans = []
+        RECORD.phases = phases
         return RECORD.run
+
+
+def end_run() -> None:
+    """End the run: later spans record nothing. Its spans and phase dict
+    stay as they are."""
+    with _LOCK:
+        RECORD.phases = None
 
 
 class _Recorded:
@@ -105,15 +130,11 @@ class _Recorded:
         return False
 
 
-def span(name: str, phases: Optional[Dict[str, float]]):
-    """A context manager timing one step named `name`: recorded while
-    `phases` is a dict (module docstring), a shared no-op while it is
-    None."""
+def span(name: str):
+    """A context manager timing one step named `name`: recorded while the
+    current run holds a phase dict (module docstring), a shared no-op
+    otherwise."""
+    phases = RECORD.phases
     if phases is None:
         return _OFF
     return _Recorded(name, phases)
-
-
-def no_span(name: str):
-    """The `phase` of a caller that times nothing."""
-    return _OFF

@@ -44,7 +44,7 @@ from ..io.bam import clon_cum16, pack_counts_sparse_d16_into
 from ..kernels import cuda_compact, cuda_sitestats
 from ..kernels.sitestats import (AGG_F64, AGG_INT, CLASS_NAMES, WIRE_ROWS,
                                  WIRE_TILE, Segments, SparseWire)
-from ..obs.spans import no_span
+from ..obs import spans
 from ..parallel.mesh import Mesh, default_device
 from .pileup import ScaffoldPileup, _bucket
 from .tables import BASES, estimate_breadth
@@ -106,9 +106,17 @@ def _fold_keys(seed: int, rids) -> np.ndarray:
 
 
 class CompactStats:
-    """Host view of site_stats_compact's outputs for one scaffold."""
+    """Host view of one scaffold's outputs of the compact engines: the
+    compact rows, aggregates, linkage profiles and masks, and the dense
+    [M, L] total, f32 clon and clonR that storage and the genes need,
+    under the dense stats' names. clon is the card's where the outputs
+    hold it; else (a scaffold whose counts came over the sparse wire)
+    total and clon are rebuilt from the int16 counts with
+    io.bam.clon_cum16 under `min_cov`, at first access, where the tables
+    are built (instrain_tpu/profile/compact.py's _dense_fn)."""
 
-    def __init__(self, pileup: ScaffoldPileup, out: Dict, M: int, L: int):
+    def __init__(self, pileup: ScaffoldPileup, out: Dict, M: int, L: int,
+                 min_cov: Optional[int] = None):
         self.pileup = pileup
         self.M = M
         self.L = L
@@ -116,6 +124,10 @@ class CompactStats:
         self.agg = out["agg"]
         self.linkage = out["linkage"]
         self.masks = out["masks"]
+        self.clonR = out["dense"]["clonR"]
+        if "clon" in out["dense"]:
+            self.__dict__["clon"] = out["dense"]["clon"]
+        self.min_cov = min_cov
 
     @property
     def mm_values(self):
@@ -132,23 +144,6 @@ class CompactStats:
     @property
     def cryptic(self):
         return self.masks["cryptic"]
-
-
-class HybridStats(CompactStats):
-    """CompactStats plus the dense [M, L] total, f32 clon and clonR that
-    storage and the genes need, under the dense stats' names. clon is the
-    card's where the outputs hold it; else (a scaffold whose counts came
-    over the sparse wire) total and clon are rebuilt from the int16 counts
-    with io.bam.clon_cum16 under `min_cov`, at first access, where the
-    tables are built (the JAX package's HybridStats._dense_fn)."""
-
-    def __init__(self, pileup: ScaffoldPileup, out: Dict, M: int, L: int,
-                 min_cov: Optional[int] = None):
-        super().__init__(pileup, out, M, L)
-        self.clonR = out["dense"]["clonR"]
-        if "clon" in out["dense"]:
-            self.__dict__["clon"] = out["dense"]["clon"]
-        self.min_cov = min_cov
 
     @cached_property
     def _from_counts(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -263,9 +258,8 @@ class _Chunk:
     card's clon (`card_clon`) and the min_cov its host clon is rebuilt
     under."""
 
-    def __init__(self, items, seg, M, with_dense):
+    def __init__(self, items, seg, M):
         self.items, self.seg, self.M = items, seg, M
-        self.with_dense = with_dense
         self.layout: List = []
         self.host = None
         self.event = None
@@ -347,8 +341,8 @@ def wire_views(buf: torch.Tensor, layout) -> Tuple[SparseWire, torch.Tensor]:
 
 
 def _dispatch_chunk(items, null_t, freq_t, min_cov: int,
-                    rarefied_coverage: int, seed: int, with_dense: bool,
-                    device, stream=None) -> _Chunk:
+                    rarefied_coverage: int, seed: int, device,
+                    stream=None) -> _Chunk:
     """Launch the site-stats and compaction kernels for a chunk of
     (index, pileup, ref_codes) items of one bucket, on `stream` (None: the
     current stream), and start the one D2H copy of its packed outputs.
@@ -368,7 +362,7 @@ def _dispatch_chunk(items, null_t, freq_t, min_cov: int,
     ctx = torch.cuda.stream(stream) if stream is not None else nullcontext()
     with ctx:
         seg = Segments(lengths, keys, dev)
-        chunk = _Chunk(items, seg, M, with_dense)
+        chunk = _Chunk(items, seg, M)
         if all(pu.counts.dtype == np.int16 and
                4 * pu.counts.shape[0] * pu.counts.shape[2] < 2 ** 31
                for _, pu, _ in items):
@@ -396,8 +390,6 @@ def _dispatch_chunk(items, null_t, freq_t, min_cov: int,
 def _pack(chunk: _Chunk, out: Dict, dev: torch.device) -> None:
     """Pack a chunk's outputs on `dev` into one buffer and start its one
     copy to the host on dev's current stream (pinned, with an event)."""
-    if not chunk.with_dense:
-        del out["dense"]
     # the tensors (the row and position counts are in seg_start), widest
     # types first: every piece starts aligned to its type
     pieces = [(path, v) for path, v in _flatten(out)
@@ -418,8 +410,7 @@ def _pack(chunk: _Chunk, out: Dict, dev: torch.device) -> None:
 
 
 def _dispatch_sharded(item, mesh: Mesh, luts, min_cov: int,
-                      rarefied_coverage: int, seed: int,
-                      with_dense: bool) -> _Chunk:
+                      rarefied_coverage: int, seed: int) -> _Chunk:
     """One scaffold's (index, pileup, ref_codes) with its positions split
     over the mesh (Mesh.position_split), on each device's current stream.
     Each shard runs site_stats and clonR, its draws at the scaffold's own
@@ -490,7 +481,7 @@ def _dispatch_sharded(item, mesh: Mesh, luts, min_cov: int,
     masks = {k: cat([f[k] for f in fulls], -1)
              for k in ("cryptic", "any_snp", "bases_mask")}
     dense = {k: cat([f[k] for f in fulls], 1) for k in ("clon", "clonR")}
-    chunk = _Chunk([item], seg0, M, with_dense)
+    chunk = _Chunk([item], seg0, M)
     _pack(chunk, dict(rows=rows, agg=agg, linkage=link, masks=masks,
                       dense=dense), dev0)
     return chunk
@@ -501,13 +492,11 @@ _NP_DTYPE = {dt: torch.empty(0, dtype=dt).numpy().dtype
                         torch.int64, torch.float32, torch.float64)}
 
 
-def _finish_chunk(chunk: _Chunk, phase=no_span
-                  ) -> List[Tuple[int, "CompactStats"]]:
-    """Wait for a chunk's copy (timed as `phase("kernels.wait")`) and
-    split its outputs by scaffold: [(index, CompactStats or HybridStats)]
-    in the chunk's order."""
+def _finish_chunk(chunk: _Chunk) -> List[Tuple[int, CompactStats]]:
+    """Wait for a chunk's copy (the span kernels.wait) and split its
+    outputs by scaffold: [(index, CompactStats)] in the chunk's order."""
     if chunk.event is not None:
-        with phase("kernels.wait"):
+        with spans.span("kernels.wait"):
             chunk.event.synchronize()
     raw = chunk.host.numpy()
     tree: Dict = {}
@@ -523,7 +512,6 @@ def _finish_chunk(chunk: _Chunk, phase=no_span
     rows, link = tree["rows"], tree["linkage"]
     rs, ps = rows.pop("seg_start"), link.pop("seg_start")
     seg, M = chunk.seg, chunk.M
-    cls = HybridStats if chunk.with_dense else CompactStats
     results = []
     for s, (i, pu, _) in enumerate(chunk.items):
         a, b = seg.bounds(s)
@@ -538,16 +526,14 @@ def _finish_chunk(chunk: _Chunk, phase=no_span
             masks={k: v[..., a:b] for k, v in tree["masks"].items()})
         out["rows"]["n_rows"] = r1 - r0
         out["linkage"]["n_pos"] = p1 - p0
-        if not chunk.with_dense:
-            results.append((i, cls(pu, out, M, b - a)))
-            continue
         out["dense"] = {k: v[:, a:b] for k, v in tree["dense"].items()}
         if (chunk.card_clon is not None and p1 > p0 and
                 int(out["linkage"]["cum"].max()) > INT16_MAX):
             # where the JAX package's sparse path gives way (its int16
             # linkage counts overflow), its clon is the card's
             out["dense"]["clon"] = chunk.card_clon[:, a:b].cpu().numpy()
-        results.append((i, cls(pu, out, M, b - a, chunk.min_cov)))
+        results.append((i, CompactStats(pu, out, M, b - a,
+                                        chunk.min_cov)))
     chunk.card_clon = None
     return results
 
@@ -555,10 +541,9 @@ def _finish_chunk(chunk: _Chunk, phase=no_span
 def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
                                   min_cov: int = 5,
                                   rarefied_coverage: int = 50,
-                                  seed: int = 42, with_dense: bool = False,
-                                  device=None,
+                                  seed: int = 42, device=None,
                                   max_chunk_cells: int = CHUNK_CELLS,
-                                  phase=None, mesh: Optional[Mesh] = None):
+                                  mesh: Optional[Mesh] = None):
     """The batch and hybrid engines' streaming core, a generator: it
     consumes (index, pileup, ref_codes) items as the caller's iterator
     builds them, launches one chunk of same-M scaffolds of at most
@@ -567,17 +552,16 @@ def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
     of a chunk once its copy has landed, in dispatch order. Chunk k + 1
     is dispatched before chunk k's results are yielded, so the caller's
     tables of chunk k overlap chunk k + 1's device work, and the pileups
-    it builds between items overlap the chunk in flight. `phase(name)` (a
-    context manager) times the engine's own work as "kernels", and the
-    host's wait for a chunk's copy within it as "kernels.wait". A kernel
-    or CUDA fault propagates: nothing is retried.
+    it builds between items overlap the chunk in flight. The engine's own
+    work is the span kernels, and the host's wait for a chunk's copy
+    within it kernels.wait. A kernel or CUDA fault propagates: nothing is
+    retried.
 
     Runs on `device` (None: the current CUDA device), or over `mesh`:
     the hybrid engine (max_chunk_cells 0) splits each scaffold's
     positions over the mesh's devices (_dispatch_sharded), the batch
     engine sends chunk k to device k mod n with its own LUT copies and
     two streams, and keeps n chunks in flight."""
-    phase = phase or no_span
     slots = (list(mesh.devices) if mesh is not None
              else [default_device(device)])
     by_position = len(slots) > 1 and max_chunk_cells == 0
@@ -594,21 +578,20 @@ def run_site_stats_compact_stream(items_iter, null_lut, freq_lut,
     pending: "deque[_Chunk]" = deque()
 
     def dispatch(items):
-        with phase("kernels"):
+        with spans.span("kernels"):
             if by_position:
                 chunk = _dispatch_sharded(items[0], mesh, luts, min_cov,
-                                          rarefied_coverage, seed,
-                                          with_dense)
+                                          rarefied_coverage, seed)
             else:
                 k = next(turn) % len(slots)
                 chunk = _dispatch_chunk(items, *luts[k], min_cov,
-                                        rarefied_coverage, seed, with_dense,
-                                        slots[k], next(streams[k]))
+                                        rarefied_coverage, seed, slots[k],
+                                        next(streams[k]))
             pending.append(chunk)
 
     def finish():
-        with phase("kernels"):
-            return _finish_chunk(pending.popleft(), phase)
+        with spans.span("kernels"):
+            return _finish_chunk(pending.popleft())
 
     for item in items_iter:
         pu = item[1]
@@ -637,49 +620,27 @@ def iter_site_stats_compact_batch(pileups, ref_codes_list, null_lut,
 
 
 def run_site_stats_compact_batch(pileups, ref_codes_list, null_lut,
-                                 freq_lut, **kwargs) -> List["CompactStats"]:
-    """The batch engine on lists: CompactStats (HybridStats with
-    with_dense) in input order; with mesh=, its chunks go to the mesh's
-    devices in turn."""
+                                 freq_lut, **kwargs) -> List[CompactStats]:
+    """The batch engine on lists: CompactStats in input order; with mesh=,
+    its chunks go to the mesh's devices in turn."""
     res = dict(iter_site_stats_compact_batch(pileups, ref_codes_list,
                                              null_lut, freq_lut, **kwargs))
     return [res[i] for i in range(len(pileups))]
-
-
-def _run_compact(pileup: ScaffoldPileup, ref_codes: np.ndarray, null_lut,
-                 freq_lut, min_cov: int, rarefied_coverage: int, seed: int,
-                 device, with_dense: bool, mesh: Optional[Mesh]):
-    """One scaffold as a chunk of one segment, under the key
-    fold_in(seed, rid) with no position chunks; with a mesh of more than
-    one device, its positions split over the mesh."""
-    stream = run_site_stats_compact_stream(
-        [(0, pileup, ref_codes)], null_lut, freq_lut, min_cov=min_cov,
-        rarefied_coverage=rarefied_coverage, seed=seed,
-        with_dense=with_dense, device=device, max_chunk_cells=0, mesh=mesh)
-    return next(stream)[1]
-
-
-def run_site_stats_compact(pileup: ScaffoldPileup, ref_codes: np.ndarray,
-                           null_lut, freq_lut, min_cov: int = 5,
-                           rarefied_coverage: int = 50, seed: int = 42,
-                           device=None, mesh: Optional[Mesh] = None
-                           ) -> CompactStats:
-    """Site stats and compaction on `device` (None: the current CUDA
-    device), or position-sharded over `mesh`; only the compact outputs
-    come back to the host."""
-    return _run_compact(pileup, ref_codes, null_lut, freq_lut, min_cov,
-                        rarefied_coverage, seed, device, False, mesh)
 
 
 def run_site_stats_hybrid(pileup: ScaffoldPileup, ref_codes: np.ndarray,
                           null_lut, freq_lut, min_cov: int = 5,
                           rarefied_coverage: int = 50, seed: int = 42,
                           device=None, mesh: Optional[Mesh] = None
-                          ) -> HybridStats:
-    """run_site_stats_compact plus the dense clon and clonR, which storage
-    needs."""
-    return _run_compact(pileup, ref_codes, null_lut, freq_lut, min_cov,
-                        rarefied_coverage, seed, device, True, mesh)
+                          ) -> CompactStats:
+    """The hybrid engine: one scaffold as a chunk of one segment, under
+    the key fold_in(seed, rid), on `device` (None: the current CUDA
+    device), or with its positions split over `mesh`."""
+    stream = run_site_stats_compact_stream(
+        [(0, pileup, ref_codes)], null_lut, freq_lut, min_cov=min_cov,
+        rarefied_coverage=rarefied_coverage, seed=seed, device=device,
+        max_chunk_cells=0, mesh=mesh)
+    return next(stream)[1]
 
 
 def _snp_columns_compact(cs: CompactStats, ref_codes: np.ndarray):

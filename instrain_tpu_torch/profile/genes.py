@@ -40,7 +40,7 @@ import pandas as pd
 
 from ..io import fasta as fasta_io
 from ..io.bam import _load_lib
-from ..obs.spans import no_span
+from ..obs import spans
 
 # ---------------- codon machinery ----------------
 
@@ -255,56 +255,30 @@ def parse_genbank_genes(path: str, gene_name: str = "gene") -> GeneData:
 # ---------------- per-scaffold gene profiling ----------------
 
 def profile_genes_for_scaffold(scaffold: str, gene_data: GeneData, stats,
-                               cumulative_snv_table: pd.DataFrame,
-                               phase=no_span):
+                               cumulative_snv_table: pd.DataFrame):
     """
     reference: GeneProfile.profile_genes_from_profile (304-350).
     `stats` is the scaffold's host-side stats from any engine: the dense
-    ScaffoldStats, or the hybrid and batch engines' HybridStats.
+    ScaffoldStats, or the hybrid and batch engines' CompactStats.
     Returns (coverage, clonality, SNP_counts, SNP_mutation_types) tables.
-    `phase(name)` (a context manager, as profile/pipeline.py's _phase)
-    times the steps genes.coverage, genes.mutations and genes.counts.
-    A scaffold profiled to its end adds its genes, its classified SNV
-    rows and its M x L cells to the counters (gene_counts).
+    Its spans (obs/spans.py) time the steps genes.coverage,
+    genes.mutations and genes.counts.
     """
     gdb = gene_data.scaff2genes[scaffold]
-    with phase("genes.coverage"):
+    with spans.span("genes.coverage"):
         sums = gene_range_sums(gdb, stats)
         cdb = calc_gene_coverage(sums)
         cldb = calc_gene_clonality(sums)
-    with phase("genes.mutations"):
+    with spans.span("genes.mutations"):
         sdb = characterize_snps_wrapper(cumulative_snv_table, gdb,
                                         gene_data.gene2sequence)
         if len(sdb) > 0:
             sdb = sdb.copy()
             sdb["scaffold"] = scaffold
-    with phase("genes.counts"):
+    with spans.span("genes.counts"):
         ldb = calc_gene_snp_counts(gdb, cumulative_snv_table, sdb,
                                    gene_data.gene2sequence)
-    profile_genes_for_scaffold.genes += len(gdb)
-    profile_genes_for_scaffold.snvs_classified += len(sdb)
-    profile_genes_for_scaffold.coverage_cells += len(sums.mm) * \
-        stats.pileup.length
     return cdb, cldb, ldb, sdb
-
-
-_GENE_COUNTERS = ("genes", "snvs_classified", "coverage_cells")
-
-
-def reset_gene_counts() -> None:
-    for k in _GENE_COUNTERS:
-        setattr(profile_genes_for_scaffold, k, 0)
-
-
-reset_gene_counts()
-
-
-def gene_counts() -> Dict[str, int]:
-    """Genes profiled, SNV rows classified (I, S, N or M) and the
-    mm level x position cells that gene_range_sums walked, since the last
-    reset: each profile run resets them first."""
-    return {k: getattr(profile_genes_for_scaffold, k)
-            for k in _GENE_COUNTERS}
 
 
 def _gene_ranges(gdb: pd.DataFrame, L: int):

@@ -20,7 +20,7 @@ import scipy.signal
 
 from ..io.stb import load_scaff2bin
 from ..obs.logging import log_failure
-from ..obs.spans import no_span
+from ..obs import spans
 from ..store import generate as gen
 from ..store.profile_dir import ProfileDir
 
@@ -33,15 +33,14 @@ from .tables import estimate_breadth  # noqa: E402
 
 def genome_wide(isdir: ProfileDir, stb: Optional[List[str]] = None,
                 mm_level: bool = False, skip_mm_profiling: bool = False,
-                fasta_loc: Optional[str] = None, phase=no_span):
+                fasta_loc: Optional[str] = None):
     """The genome_wide operation (reference: genomeUtilities.Controller).
-    `phase(name)` (a context manager, as profile/pipeline.py's _phase)
-    times a profile's steps: "genome.load" (the stored tables, covT, the
-    .stb and the FASTA read back), "genome.coverage" (the per-genome
-    coverage arrays and their median, SEM and std per mm level),
-    "genome.irep" (the GC windows and the iRep fits) and "genome.write"
-    (the stores and genome_info and SNVs)."""
-    with phase("genome.load"):
+    Its spans (obs/spans.py) time a profile run's steps: genome.load (the
+    stored tables, covT, the .stb and the FASTA read back),
+    genome.coverage (the per-genome coverage arrays and their median, SEM
+    and std per mm level), genome.irep (the GC windows and the iRep fits)
+    and genome.write (the stores and genome_info and SNVs)."""
+    with spans.span("genome.load"):
         s2l = isdir.get("scaffold2length")
         s2b = load_scaff2bin(stb, s2l)
     b2l: Dict[str, int] = {}
@@ -52,13 +51,13 @@ def genome_wide(isdir: ProfileDir, stb: Optional[List[str]] = None,
         else:
             log_failure("StbError", scaffold,
                         f"{b} no_length will not be considered")
-    with phase("genome.write"):
+    with spans.span("genome.write"):
         isdir.store("scaffold2bin", s2b, "dictionary",
                     "Dictionary of scaffold 2 bin")
         isdir.store("bin2length", b2l, "dictionary",
                     "Dictionary of bin 2 total length")
 
-    with phase("genome.load"):
+    with spans.span("genome.load"):
         object_type = isdir.get("object_type")
         if object_type is None:
             object_type = ("compare" if isdir.get("comparisonsTable")
@@ -67,8 +66,8 @@ def genome_wide(isdir: ProfileDir, stb: Optional[List[str]] = None,
     if object_type == "profile":
         gidb = genome_level_info(isdir, s2b, b2l,
                                  skip_mm_profiling=skip_mm_profiling,
-                                 fasta_loc=fasta_loc, phase=phase)
-        with phase("genome.write"):
+                                 fasta_loc=fasta_loc)
+        with spans.span("genome.write"):
             isdir.store("genome_level_info", gidb, "pandas",
                         "Table of genome-level information")
             gen.generate(isdir, "genome_info", mm_level=mm_level)
@@ -88,11 +87,10 @@ def _add_stb(db: pd.DataFrame, stb: Dict[str, str]):
 
 def genome_level_info(isdir: ProfileDir, s2b, b2l,
                       skip_mm_profiling: bool = False,
-                      fasta_loc: Optional[str] = None,
-                      phase=no_span) -> pd.DataFrame:
-    """reference: genomeLevel_from_IS (genomeUtilities.py:145-269);
-    `phase` as genome_wide's."""
-    with phase("genome.load"):
+                      fasta_loc: Optional[str] = None) -> pd.DataFrame:
+    """reference: genomeLevel_from_IS (genomeUtilities.py:145-269); spans
+    as genome_wide's."""
+    with spans.span("genome.load"):
         s2l = isdir.get("scaffold2length")
         db = isdir.get("cumulative_scaffold_table")
         scaff2sequence = _load_scaff2sequence(isdir, fasta_loc)
@@ -117,8 +115,7 @@ def genome_level_info(isdir: ProfileDir, s2b, b2l,
     mms = ([1000] if skip_mm_profiling else
            sorted({mm for ct in covT.values() for mm in ct}))
     egdb = genome_coverage_info(covT, bin2scaffolds,
-                                set(gsi["genome"]), s2l, scaff2sequence, mms,
-                                phase=phase)
+                                set(gsi["genome"]), s2l, scaff2sequence, mms)
 
     # read-report rollup
     rdb = rdb[rdb["scaffold"] != "all_scaffolds"]
@@ -205,13 +202,13 @@ def _genome_scaffold_info(gdb, stb, b2l) -> pd.DataFrame:
 
 
 def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
-                         scaff2sequence, mms, phase=no_span) -> pd.DataFrame:
+                         scaff2sequence, mms) -> pd.DataFrame:
     """reference: genomeLevel_coverage_info (297-365) over
     generate_genome_coverage_array (932-981): at each mm level of `mms`
     (ascending), a genome's coverage is its scaffolds' covT summed over
     mm <= level, longest scaffold first, 100 bp edges masked (a scaffold
     under 200 bp adds nothing), concatenated; its median, SEM and std a
-    row, and iRep at mm 1 and 1000. `phase` as genome_wide's.
+    row, and iRep at mm 1 and 1000. Spans as genome_wide's.
 
     The concatenated float64 array is built once a genome as a running
     sum: each level adds only the series whose mm lies above the level
@@ -233,26 +230,26 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
 
         gc_windows = None
         if scaff2sequence is not None:
-            with phase("genome.irep"):
+            with spans.span("genome.irep"):
                 try:
                     gc_windows = generate_gc_windows(scaffolds,
                                                      scaff2sequence)
                 except Exception:
                     pass
 
-        with phase("genome.coverage"):
+        with spans.span("genome.coverage"):
             by_level, length = _series_by_level(covT, s2l, scaffolds, mms)
             covs = np.zeros(length)
             scratch = np.empty(max(length, 1))
         iRep = np.nan
         iRep_acc = {"iRep_GC_corrected": np.nan}
         for mm, added in zip(mms, by_level):
-            with phase("genome.coverage"):
+            with spans.span("genome.coverage"):
                 for start, kept, series in added:
                     _add_series(covs, start, kept, series)
                 genome_coverage_info.series_added += len(added)
             if mm == 1 or mm == 1000:
-                with phase("genome.irep"):
+                with spans.span("genome.irep"):
                     try:
                         with warnings.catch_warnings():
                             warnings.simplefilter("ignore")
@@ -262,7 +259,7 @@ def genome_coverage_info(covT, bin2scaffolds, relevant_genomes, s2l,
                         log_failure("iRepError", f"{genome} {mm}")
                         iRep = np.nan
                         iRep_acc = {"iRep_GC_corrected": np.nan}
-            with phase("genome.coverage"):
+            with spans.span("genome.coverage"):
                 table["mm"].append(mm)
                 table["genome"].append(genome)
                 median, sem, std = _coverage_stats(

@@ -27,6 +27,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from .compact import CompactStats, _fold_keys
 from .pileup import ScaffoldStats
 
 BASES = "ACTG"
@@ -285,8 +286,6 @@ def _device_ld_args(stats, pairs, e_idx, M, p1, p2, min_snp, seed,
     combo indices, the cumulative counts and presence at each edge's two
     positions, the key fold_in(seed, rid), min_snp and the counter's mm
     stride ceil8(M)."""
-    from .compact import _fold_keys
-
     c1, pr1 = _gather_pos_stats(stats, p1)            # [E, M, 4], [E, M]
     c2, pr2 = _gather_pos_stats(stats, p2)
     tensors = _stage([np.ascontiguousarray(a, dtype=dt) for a, dt in (
@@ -339,7 +338,7 @@ def _calculate_linkage_device(stats, pairs, e_idx, M, p1, p2, min_snp,
 def _gather_pos_stats(stats, positions):
     """(cum counts [E, M, 4], exact-mm presence [E, M]) at positions —
     from dense arrays or from the compacted per-SNV-position profiles."""
-    if hasattr(stats, "linkage"):  # CompactStats
+    if isinstance(stats, CompactStats):
         lk = stats.linkage
         idx = np.searchsorted(lk["pos"], positions)
         assert np.array_equal(lk["pos"][idx], positions), "position missing"

@@ -75,28 +75,12 @@ from .pileup import (ScaffoldStats, _bucket, build_scaffold_pileup,
                      build_scaffold_pileup_padded, make_luts,
                      run_site_stats)
 
-# Phase accounting: set to a dict ({} works) to record the spans of a
-# profile run (obs/spans.py: spans.RECORD, reset by each run) and add
-# their seconds up per name. The main thread's top-level spans (registry,
-# decode, filter, pileup, kernels, tables, gather, store, genome, plots)
-# add up to its wall but for the log checkpoints and scaffold selection;
-# a child span, `<parent>.<step>`, lies inside its parent (kernels.wait;
-# tables.linkage, tables.views; store.outputs, store.wait, store.genes;
-# genome.load, genome.coverage, genome.irep, genome.write; genes.parse,
-# genes.coverage, genes.mutations, genes.counts). With -g, "genes" is the
-# gene file's parse (genes.parse), at the top level, and each scaffold's
-# gene profile, inside "tables"; "store_reads" and "special_stream" are
-# the batch engine's two store threads, which overlap the main thread.
-# While it is a dict each span is also a torch.profiler range. None reads
-# no clock. benchmark/run.py and chip_smoke.py read it; the gene counters
-# are profile/genes.py:gene_counts, reset by each run.
+# Phase accounting: benchmark/run.py and chip_smoke.py set this to a dict
+# before a run and read it after. profile() hands it to spans.start_run,
+# so the dict is taken at the run's start, and each span of the run adds
+# its seconds to it by name (the names: obs/spans.py's docstring). None
+# records nothing.
 PHASES: Optional[Dict[str, float]] = None
-
-
-def _phase(name: str):
-    """A span of the profile run named `name`: recorded while PHASES is
-    a dict (obs/spans.py)."""
-    return spans.span(name, PHASES)
 
 
 def _start_thread(name: str, target):
@@ -137,7 +121,7 @@ def _start_special_writes(stream: Dict[str, "SpecialStreamWriter"]):
                 return
             name, views = item
             try:
-                with _phase("special_stream"):
+                with spans.span("special_stream"):
                     for attr, writer in stream.items():
                         writer.write(name, views[attr])
             except Exception as e:
@@ -256,51 +240,55 @@ def profile(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     `mesh` (parallel/mesh.make_mesh, whose devices may repeat) takes the
     place of cfg.mesh_devices; the device of the dense path and of
     linkage is then its first."""
-    spans.start_run()
-    genes_mod.reset_gene_counts()
-    check_supported(cfg)
-    device = resolve_device(cfg.device)
-    if mesh is not None:
-        device = mesh.devices[0]
-    elif cfg.mesh_devices and cfg.mesh_devices > 1:
-        # the cards from the current one on (the CLI makes cuda:LOCAL_RANK
-        # * N current under torchrun), or N shards of the CPU
-        mesh = make_mesh(cfg.mesh_devices, device_type=device.type)
-    cfg.apply_database_mode()
-    if not writes_profile(cfg):
-        # a peer of process 0: it profiles its share and sends it, and
-        # touches no file of the directory process 0 writes
-        return _profile_impl(bam_path, fasta_path, cfg, None, device, mesh)
-    isdir = ProfileDir(output or cfg.output)
-
-    # per-run DEBUG file log (reference: controller.setup_logger writes
-    # <out>/log/log.log)
-    with _phase("registry"):
-        fh = logging.FileHandler(isdir.get_location("log") + "log.log")
-        fh.setLevel(logging.DEBUG)
-        fh.setFormatter(logging.Formatter(
-            "%(asctime)s %(levelname)-8s %(message)s",
-            datefmt="%y-%m-%d %H:%M:%S"))
-        root = logging.getLogger("")
-        old_level = root.level
-        if old_level > logging.DEBUG:
-            root.setLevel(logging.DEBUG)
-        root.addHandler(fh)
+    spans.start_run(PHASES)
     try:
-        return _profile_impl(bam_path, fasta_path, cfg, isdir, device,
-                             mesh)
+        check_supported(cfg)
+        device = resolve_device(cfg.device)
+        if mesh is not None:
+            device = mesh.devices[0]
+        elif cfg.mesh_devices and cfg.mesh_devices > 1:
+            # the cards from the current one on (the CLI makes
+            # cuda:LOCAL_RANK * N current under torchrun), or N shards of
+            # the CPU
+            mesh = make_mesh(cfg.mesh_devices, device_type=device.type)
+        cfg.apply_database_mode()
+        if not writes_profile(cfg):
+            # a peer of process 0: it profiles its share and sends it, and
+            # touches no file of the directory process 0 writes
+            return _profile_impl(bam_path, fasta_path, cfg, None, device,
+                                 mesh)
+        isdir = ProfileDir(output or cfg.output)
+
+        # per-run DEBUG file log (reference: controller.setup_logger
+        # writes <out>/log/log.log)
+        with spans.span("registry"):
+            fh = logging.FileHandler(isdir.get_location("log") + "log.log")
+            fh.setLevel(logging.DEBUG)
+            fh.setFormatter(logging.Formatter(
+                "%(asctime)s %(levelname)-8s %(message)s",
+                datefmt="%y-%m-%d %H:%M:%S"))
+            root = logging.getLogger("")
+            old_level = root.level
+            if old_level > logging.DEBUG:
+                root.setLevel(logging.DEBUG)
+            root.addHandler(fh)
+        try:
+            return _profile_impl(bam_path, fasta_path, cfg, isdir, device,
+                                 mesh)
+        finally:
+            with spans.span("registry"):
+                root.removeHandler(fh)
+                root.setLevel(old_level)
+                fh.close()
     finally:
-        with _phase("registry"):
-            root.removeHandler(fh)
-            root.setLevel(old_level)
-            fh.close()
+        spans.end_run()
 
 
 def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                   isdir: Optional[ProfileDir], device: torch.device,
                   mesh: Optional[Mesh]) -> Optional[ProfileDir]:
     log_checkpoint("main_profile", "filter_reads", "start")
-    with _phase("registry"):
+    with spans.span("registry"):
         registry = fasta_io.ScaffoldRegistry.from_fasta(
             fasta_path, window_length=cfg.window_length,
             use_full_header=cfg.use_full_fasta_header,
@@ -314,7 +302,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     rank = dist_mod.process_index()
     owned = (_plan_sharded_decode(bam_path, registry, cfg) if multi_host
              else None)
-    with _phase("decode"):
+    with spans.span("decode"):
         bam = decode_bam(bam_path, ref_seqs=ref_seqs,
                          threads=cfg.processes, baq=False, scaffolds=owned)
     if owned is not None:
@@ -324,7 +312,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         else:
             logging.info("ranged decode unavailable; this host decoded the "
                          "full BAM (filtering stays sharded)")
-    with _phase("filter"):
+    with spans.span("filter"):
         if owned is not None:
             pairs = filter_reads_distributed(
                 bam, cfg.filter, registry.names, owned,
@@ -350,7 +338,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         # can be looked into (the reference's controller.py:260-322 stores
         # before its 314-317 abort)
         if not primary_peer:
-            with _phase("store"):
+            with spans.span("store"):
                 store_reads()
         raise RuntimeError(
             "No paired reads remain after filtering; consider "
@@ -377,14 +365,14 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                      f"{dist_mod.process_count()} owns {len(keep_local)} of "
                      f"{len(keep)} scaffolds")
 
-    with _phase("registry"):
+    with spans.span("registry"):
         null_lut, freq_lut = make_luts(cfg.variant)
         null_t = torch.as_tensor(null_lut, dtype=torch.int32, device=device)
         freq_t = torch.as_tensor(freq_lut, dtype=torch.int32, device=device)
 
     gene_data = None
     if cfg.gene_file is not None:
-        with _phase("genes"), _phase("genes.parse"):
+        with spans.span("genes"), spans.span("genes.parse"):
             gene_data = genes_mod.parse_genes(cfg.gene_file)
 
     shards = mesh.size if mesh is not None else 1
@@ -402,13 +390,13 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
     join_reads, stream = None, {}
     if not primary_peer and engine == "batch":
         def reads_thread():
-            with _phase("store_reads"):
+            with spans.span("store_reads"):
                 store_reads()
         join_reads = _start_thread("instrain-store-reads", reads_thread)
         stream = {k: isdir.open_special_stream(k, d)
                   for k, d in _SPECIAL_DESCR.items()}
     elif not primary_peer:
-        with _phase("store"):
+        with spans.span("store"):
             store_reads()
     try:
         if engine in ("dense", "pallas"):
@@ -420,7 +408,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                                             gene_data, engine == "pallas")
                 logging.debug(get_worker_log("SplitProfile", name, "end"))
                 if res is not None:
-                    with _phase("tables"):
+                    with spans.span("tables"):
                         finals.append(_finalize_result(res, cfg, bam.qnames))
         else:
             finals = _profile_scaffolds_compact(
@@ -428,11 +416,11 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                 freq_t, device, gene_data, mesh, stream=stream,
                 keep_special_payload=multi_host)
         if join_reads is not None:
-            with _phase("store"), _phase("store.wait"):
+            with spans.span("store"), spans.span("store.wait"):
                 join_reads()
         if multi_host:
             mine = {r["name"] for r in finals}
-            with _phase("gather"):
+            with spans.span("gather"):
                 finals = _gather_results(
                     finals, keep, unpack=not primary_peer and not stream)
             if primary_peer:
@@ -441,7 +429,7 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
                 log_checkpoint("main_profile", "profile_scaffolds", "end")
                 return None
         if stream:
-            with _phase("store"):
+            with spans.span("store"):
                 # this process's scaffolds were written in the loop; the
                 # gathered ones now, and every view leaves the payloads
                 # (instrain_tpu/profile/pipeline.py:358-369)
@@ -461,26 +449,25 @@ def _profile_impl(bam_path: str, fasta_path: str, cfg: ProfileConfig,
         for writer in stream.values():
             writer.abort()
         raise
-    with _phase("store"):
+    with spans.span("store"):
         _store_results(isdir, finals, cfg, gene_data,
                        prewritten=frozenset(stream))
         log_checkpoint("main_profile", "profile_scaffolds", "end")
         # outputs (reference: controller.py:352-360)
-        with _phase("store.outputs"):
+        with spans.span("store.outputs"):
             for t in ["SNVs", "scaffold_info", "linkage", "gene_info",
                       "mapping_info"]:
                 gen.generate(isdir, t, force_compress=cfg.force_compress)
     if not cfg.skip_genome_wide:
         # instrain_tpu/profile/pipeline.py:391-396
         log_checkpoint("main_profile", "genome_wide", "start")
-        with _phase("genome"):
+        with spans.span("genome"):
             genome_mod.genome_wide(isdir, stb=cfg.stb, mm_level=cfg.mm_level,
-                                   skip_mm_profiling=cfg.skip_mm_profiling,
-                                   phase=_phase)
+                                   skip_mm_profiling=cfg.skip_mm_profiling)
         log_checkpoint("main_profile", "genome_wide", "end")
     if not cfg.skip_plot_generation:
         # instrain_tpu/profile/pipeline.py:398-403
-        with _phase("plots"):
+        with spans.span("plots"):
             try:
                 from ..plotting.controller import make_plots
                 make_plots(isdir, plots="a")
@@ -572,18 +559,18 @@ def _profile_one_scaffold_inner(bam, pairs, registry, name, cfg, null_lut,
     if rid is None:
         return None
     L = registry.length_of(name)
-    with _phase("pileup"):
+    with spans.span("pileup"):
         pileup = _build_pileup(bam, pairs, rid, L, cfg, padded=False)
         if pileup is None:
             return None
     ref_codes = registry.codes[name]
-    with _phase("kernels"):
+    with spans.span("kernels"):
         stats = run_site_stats(pileup, ref_codes, null_lut, freq_lut,
                                min_cov=cfg.variant.min_cov,
                                rarefied_coverage=cfg.rarefied_coverage,
                                seed=cfg.seed, device=device,
                                pallas=pallas)
-    with _phase("tables"):
+    with spans.span("tables"):
         return _result_from_stats(name, L, stats, ref_codes, cfg, device,
                                   gene_data)
 
@@ -666,7 +653,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
             if rid is None:
                 continue
             L = registry.length_of(name)
-            with _phase("pileup"):
+            with spans.span("pileup"):
                 try:
                     if engine == "hybrid":
                         _inject_failure(name, cfg)
@@ -693,7 +680,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
 
     def handle(i, stats):
         name, L, ref_codes = metas[i]
-        with _phase("tables"):
+        with spans.span("tables"):
             try:
                 finals[i] = _finalize_result(_result_from_stats(
                     name, L, stats, ref_codes, cfg, device, gene_data), cfg,
@@ -711,11 +698,11 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
     chunk_cells = compact_mod.CHUNK_CELLS if engine == "batch" else 0
     try:
         for i, stats in compact_mod.run_site_stats_compact_stream(
-                items(), null_lut, freq_lut, with_dense=True, device=device,
-                max_chunk_cells=chunk_cells, phase=_phase, mesh=mesh, **kw):
+                items(), null_lut, freq_lut, device=device,
+                max_chunk_cells=chunk_cells, mesh=mesh, **kw):
             handle(i, stats)
         for i, pu in dense:
-            with _phase("kernels"):
+            with spans.span("kernels"):
                 stats = run_site_stats(pu, metas[i][2], null_lut, freq_lut,
                                        device=device, **kw)
             handle(i, stats)
@@ -724,7 +711,7 @@ def _profile_scaffolds_compact(bam, pairs, registry, keep, cfg, engine,
             finish_writes(raising=False)
         raise
     if finish_writes is not None:
-        with _phase("store"), _phase("store.wait"):
+        with spans.span("store"), spans.span("store.wait"):
             finish_writes()
     return [finals[i] for i in sorted(finals)]
 
@@ -741,16 +728,16 @@ def _result_from_stats(name, L, stats, ref_codes, cfg, device, gene_data):
         csnv = tables.cumulative_snv_table(snp)
         ctable = tables.coverage_table(stats, snp)
     ws = linkage_mod.window_starts_for(L, cfg.window_length)
-    with _phase("tables.linkage"):
+    with spans.span("tables.linkage"):
         ld = linkage_mod.calculate_linkage(stats, ws,
                                           min_snp=int(cfg.min_snp),
                                           seed=cfg.seed, device=device)
     gene_results = None
     if gene_data is not None and name in gene_data.scaff2genes:
-        with _phase("genes"):
+        with spans.span("genes"):
             try:
                 gene_results = genes_mod.profile_genes_for_scaffold(
-                    name, gene_data, stats, csnv, phase=_phase)
+                    name, gene_data, stats, csnv)
             except Exception as e:
                 # host code only: a gene failure does not drop the
                 # scaffold (reference: profile_utilities.py:388-396)
@@ -773,7 +760,7 @@ def _finalize_result(r: ScaffoldProfileResult, cfg, qnames) -> Dict:
     covT/clonT views and the linkage capture, its reads by name (the
     stats object holds views into native decoder memory and is dropped
     here). The payload is what crosses processes in a distributed run."""
-    with _phase("tables.views"):
+    with spans.span("tables.views"):
         out = dict(
             name=r.name, length=r.length,
             snp_table=r.snp_table,
@@ -851,7 +838,7 @@ def _store_results(isdir: ProfileDir, finals: List[Dict], cfg, gene_data,
 
     if gene_data is not None:
         # instrain_tpu/profile/pipeline.py:866-880
-        with _phase("store.genes"):
+        with spans.span("store.genes"):
             genes_mod.store_gene_tables(
                 isdir, cfg.gene_file, gene_data,
                 [cat([r["gene_results"][i] for r in finals

@@ -125,7 +125,7 @@ def golden_chunk(g, name, device="cpu"):
         chunk = PC._dispatch_chunk(
             items, torch.as_tensor(g["null_lut"], device=dev),
             torch.as_tensor(g["freq_lut"], device=dev), G.MIN_COV,
-            G.RAREFIED, 0, False, dev)
+            G.RAREFIED, 0, dev)
     finally:
         PC._fold_keys = fold
     return [(Ms[s], st) for s, st in PC._finish_chunk(chunk)]
@@ -173,12 +173,12 @@ def test_batch_matches_jax_batch_and_port_hybrid():
     pus, jpus, refs = zip(*sc)
     # a small chunk bound: the M = 4 and M = 9 buckets split into chunks
     got = PC.run_site_stats_compact_batch(
-        list(pus), list(refs), NULL_LUT, FREQ_LUT, seed=8, with_dense=True,
+        list(pus), list(refs), NULL_LUT, FREQ_LUT, seed=8,
         max_chunk_cells=3 * 4 * 1300, device="cpu")
     want = JC.run_site_stats_compact_batch(
         list(jpus), list(refs), NULL_LUT, FREQ_LUT, seed=8, with_dense=True)
     for pu, ref, js, ps in zip(pus, refs, want, got):
-        assert isinstance(ps, PC.HybridStats) and ps.pileup is pu
+        assert isinstance(ps, PC.CompactStats) and ps.pileup is pu
         hy = PC.run_site_stats_hybrid(pu, ref, NULL_LUT, FREQ_LUT, seed=8,
                                       device="cpu")
         assert_stats_equal(hy, ps, pu.name)

@@ -130,8 +130,8 @@ def hybrid_one():
 @pytest.fixture(scope="module")
 def compact_one():
     pu, jpu, ref = _pileups(11, M=3, L=4097)
-    return pu, jpu, ref, PC.run_site_stats_compact(pu, ref, *LUTS,
-                                                   device="cpu")
+    return pu, jpu, ref, PC.run_site_stats_hybrid(pu, ref, *LUTS,
+                                                  device="cpu")
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -139,7 +139,7 @@ def test_hybrid_position_sharded_equals_one_device(n, hybrid_one):
     """L = 9001 divides by none of the shard counts."""
     pu, _, ref, one = hybrid_one
     sharded = PC.run_site_stats_hybrid(pu, ref, *LUTS, mesh=cpu_mesh(n))
-    assert isinstance(sharded, PC.HybridStats)
+    assert isinstance(sharded, PC.CompactStats)
     assert_stats_equal(one, sharded, dense=True)
     assert np.isfinite(sharded.clonR).any()
 
@@ -147,22 +147,24 @@ def test_hybrid_position_sharded_equals_one_device(n, hybrid_one):
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_compact_position_sharded_equals_one_device(n, compact_one):
     pu, _, ref, one = compact_one
-    sharded = PC.run_site_stats_compact(pu, ref, *LUTS, mesh=cpu_mesh(n))
+    sharded = PC.run_site_stats_hybrid(pu, ref, *LUTS, mesh=cpu_mesh(n))
     assert type(sharded) is PC.CompactStats
-    assert_stats_equal(one, sharded, dense=False)
+    assert_stats_equal(one, sharded, dense=True)
 
 
 def test_position_sharded_matches_jax_mesh8(jax_mesh8, hybrid_one,
                                             compact_one):
     """The port's 8 shards against the JAX package's mesh of 8 virtual
     CPU devices, at tests/test_parallel.py's shapes (the port's 8 shards
-    equal its one device: the tests above)."""
-    for case, run, dense in ((hybrid_one, "run_site_stats_hybrid", True),
-                             (compact_one, "run_site_stats_compact",
-                              False)):
+    equal its one device: the tests above). The second shape is held to
+    the JAX package's compact run, which has no dense views."""
+    for case, jax_run, dense in ((hybrid_one, JC.run_site_stats_hybrid,
+                                  True),
+                                 (compact_one, JC.run_site_stats_compact,
+                                  False)):
         pu, jpu, ref, _ = case
-        js = getattr(JC, run)(jpu, ref, *LUTS, mesh=jax_mesh8)
-        ps = getattr(PC, run)(pu, ref, *LUTS, mesh=cpu_mesh(8))
+        js = jax_run(jpu, ref, *LUTS, mesh=jax_mesh8)
+        ps = PC.run_site_stats_hybrid(pu, ref, *LUTS, mesh=cpu_mesh(8))
         assert_matches_jax(js, ps, ref, dense=dense)
 
 
@@ -173,7 +175,7 @@ def test_batch_scaffold_sharded(n_scaff, jax_mesh8):
     and the JAX package's batch over its 8 devices, per scaffold."""
     pus, jpus, refs = zip(*[_pileups(100 + i, M=3, L=3000 + 17 * i)
                             for i in range(n_scaff)])
-    kw = dict(with_dense=True, max_chunk_cells=3 * 4 * 3100)
+    kw = dict(max_chunk_cells=3 * 4 * 3100)
     one = PC.run_site_stats_compact_batch(list(pus), list(refs), *LUTS,
                                           device="cpu", **kw)
     sharded = PC.run_site_stats_compact_batch(list(pus), list(refs), *LUTS,
@@ -292,8 +294,7 @@ def test_engine_defaults_need_a_gpu(monkeypatch):
     device: on a host without one they raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pu, _, ref = _pileups(1, M=2, L=500)
-    for run in (PC.run_site_stats_hybrid, PC.run_site_stats_compact,
-                PPU.run_site_stats):
+    for run in (PC.run_site_stats_hybrid, PPU.run_site_stats):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(pu, ref, *LUTS)
     for run in (PC.run_site_stats_compact_batch,

@@ -11,16 +11,18 @@ with genome-wide, as tests/test_torch_stream.py runs the engine:
   genes.coverage, genes.mutations and genes.counts lie inside a genes
   span (the parse's at the top level, each scaffold's inside tables) and
   store.genes inside store, each group adding up to no more than its
-  parent; the gene counters equal gene_info's rows, the classified SNV
-  rows and the levels x positions of the scaffolds with genes, and a
-  second run counts anew;
+  parent;
 - store_reads and special_stream run on the store threads, store.wait
   and registry on the main thread;
 - with PHASES None nothing is recorded, and neither the clock nor
   torch.profiler.record_function is called;
+- outside a run nothing is recorded, with PHASES a dict too: after a
+  traced profile returns or raises, direct calls of the batch engine and
+  genome_wide, and the genome_wide and profile_genes subcommands;
 - under torch.profiler (CPU), the exported chrome trace holds a range for
   every main-thread span;
-- compare's _phase records through the same recorder;
+- the profile and compare runs' PHASES record through the same
+  recorder (spans.start_run, spans.span);
 - many threads recording at once lose no span and no second.
 
 The CPU run has no CUDA event to wait on: a stand-in event on each chunk
@@ -28,20 +30,25 @@ makes the engine's kernels.wait span run.
 """
 
 import json
+import shutil
 import sys
 import threading
 import types
 
-import pandas as pd
+import numpy as np
 import pytest
 import torch
 
 from instrain_tpu_torch.cli import main as port_main
 from instrain_tpu_torch.compare import pipeline as CP
+from instrain_tpu_torch.kernels.cuda_sitestats import KernelError
+from instrain_tpu_torch.kernels.nullmodel import analytic_null_thresholds
+from instrain_tpu_torch.kernels.sitestats import freq_min_count_lut
 from instrain_tpu_torch.obs import spans
 from instrain_tpu_torch.profile import compact as PC
-from instrain_tpu_torch.profile import genes as PG
 from instrain_tpu_torch.profile import pipeline as PP
+from instrain_tpu_torch.profile.genome import genome_wide
+from instrain_tpu_torch.profile.pileup import ScaffoldPileup
 from instrain_tpu_torch.store.profile_dir import ProfileDir
 from instrain_tpu_torch.synth import synth, synth_genes
 
@@ -124,10 +131,9 @@ def genes_file(data):
 
 @pytest.fixture(scope="module")
 def traced_genes(data, genes_file):
-    """The traced profile with -g, its gene counters read after it."""
+    """The traced profile with -g."""
     d, fasta, bam = data
-    return _traced(d, fasta, bam, "genes.IS", ["-g", genes_file]) + (
-        PG.gene_counts(),)
+    return _traced(d, fasta, bam, "genes.IS", ["-g", genes_file])
 
 
 def test_children_inside_parents(traced):
@@ -168,7 +174,7 @@ def test_gene_steps_inside_genes_spans(traced_genes):
     """Each genes.<step> span lies inside a genes span (children_inside_
     parents' rule); the parse's genes span is at the top level and each
     scaffold's inside tables; store.genes inside store."""
-    _, record, _, _, _ = traced_genes
+    _, record, _, _ = traced_genes
     parents = {}
     for s in record:
         if s.name.startswith("genes.") or s.name == "store.genes":
@@ -181,38 +187,6 @@ def test_gene_steps_inside_genes_spans(traced_genes):
     assert parents == {"genes.parse": {None}, "genes.coverage": {"tables"},
                        "genes.mutations": {"tables"},
                        "genes.counts": {"tables"}, "store.genes": {None}}
-
-
-def test_gene_counters(traced_genes, data, genes_file):
-    """Genes profiled equal gene_info's rows (every gene of the profiled
-    scaffolds is covered), SNV rows classified the stored mutation types';
-    a second run counts anew, from 0."""
-    d, fasta, bam = data
-    counts = traced_genes[4]
-    isdir = ProfileDir(str(d / "genes.IS"))
-    gene_info = pd.read_csv(isdir.get_output_base() + "gene_info.tsv",
-                            sep="\t")
-    assert counts["genes"] == len(gene_info) > 0
-    assert counts["snvs_classified"] == len(
-        isdir.get("SNP_mutation_types")) > 0
-    assert port_main(["profile", bam, fasta, "-o", str(d / "again.IS"),
-                      "-g", genes_file] + FLAGS) == 0
-    assert PG.gene_counts() == counts
-
-
-def test_gene_coverage_cells(traced_genes, data):
-    """coverage_cells is the sum of M x L over the profiled scaffolds
-    with genes: each one's mm levels (its rows in the cumulative scaffold
-    table, one per level) times its length. A second run reads the same
-    (test_gene_counters compares every counter)."""
-    isdir = ProfileDir(str(data[0] / "genes.IS"))
-    table = isdir.get("cumulative_scaffold_table")
-    with_genes = set(isdir.get("genes_table")["scaffold"])
-    rows = table[table["scaffold"].isin(with_genes)]
-    assert set(rows["scaffold"]) == with_genes & set(table["scaffold"])
-    assert rows.groupby("scaffold")["mm"].nunique().equals(
-        rows.groupby("scaffold").size())
-    assert traced_genes[4]["coverage_cells"] == int(rows["length"].sum()) > 0
 
 
 @pytest.mark.parametrize("name,thread", [
@@ -268,21 +242,89 @@ def test_off_records_nothing(request, data, monkeypatch, genes):
     assert spans.RECORD.spans == [] and calls == []
 
 
+@pytest.mark.parametrize("ending", ["returned", "raised"])
+def test_calls_after_a_run_record_nothing(data, traced, tmp_path,
+                                          monkeypatch, ending):
+    """After a traced profile returns, or raises (a kernel fault in the
+    batch loop), a direct call of the batch engine on the CPU and of
+    genome_wide on a stored profile records no span and leaves that run's
+    PHASES as they were."""
+    d, fasta, bam = data
+    monkeypatch.setattr(PP, "PHASES", {})
+    argv = ["profile", bam, fasta, "-o", str(tmp_path / "p.IS")] + FLAGS
+    if ending == "raised":
+        def kernel_fault(*a, **k):
+            raise KernelError("site_stats: launch failed")
+
+        with monkeypatch.context() as m:
+            m.setattr(PC, "_dispatch_chunk", kernel_fault)
+            with pytest.raises(KernelError):
+                port_main(argv)
+    else:
+        assert port_main(argv) == 0
+    phases, run = dict(PP.PHASES), spans.RECORD.run
+    record = list(spans.RECORD.spans)
+    assert phases and record and {s.run for s in record} == {run}
+
+    rng = np.random.default_rng(0)
+    pus, refs = [], []
+    for k, L in enumerate((700, 1300)):
+        counts = rng.integers(0, 12, (2, 4, L)).astype(np.int32)
+        pus.append(ScaffoldPileup(name=f"s{k}", rid=k, length=L,
+                                  mm_values=np.arange(2), counts=counts))
+        refs.append(rng.integers(0, 4, L).astype(np.uint8))
+    got = PC.run_site_stats_compact_batch(
+        pus, refs, analytic_null_thresholds(max_coverage=1000),
+        freq_min_count_lut(0.05, max_coverage=1000), device="cpu")
+    assert [st.pileup for st in got] == pus
+    stored = shutil.copytree(d / "traced.IS", tmp_path / "g.IS")
+    genome_wide(ProfileDir(str(stored)))
+    assert (tmp_path / "g.IS" / "output" / "g.IS_genome_info.tsv").exists()
+
+    assert PP.PHASES == phases and spans.RECORD.run == run
+    assert spans.RECORD.spans == record
+
+
+@pytest.mark.parametrize("sub", ["genome_wide", "profile_genes"])
+def test_subcommands_record_nothing(traced_genes, data, genes_file,
+                                    tmp_path, monkeypatch, sub):
+    """With PHASES a dict, the genome_wide and profile_genes subcommands,
+    which run outside a profile run, record no span and add nothing to
+    PHASES."""
+    stored = str(shutil.copytree(data[0] / "genes.IS", tmp_path / "g.IS"))
+    monkeypatch.setattr(PP, "PHASES", {})
+    run, record = spans.RECORD.run, list(spans.RECORD.spans)
+    argv = {"genome_wide": ["genome_wide", "-i", stored],
+            "profile_genes": ["profile_genes", "-i", stored, "-g",
+                              genes_file]}[sub]
+    assert port_main(argv) == 0
+    assert PP.PHASES == {} and spans.RECORD.run == run
+    assert spans.RECORD.spans == record
+
+
 @pytest.mark.parametrize("mod", [PP, CP], ids=["profile", "compare"])
 def test_phase_records_through_one_recorder(monkeypatch, mod):
+    """The run's PHASES, handed to spans.start_run as profile() and
+    compare() hand it, take every span of every thread until
+    spans.end_run."""
     monkeypatch.setattr(mod, "PHASES", {})
-    run = spans.start_run()
+    run = spans.start_run(mod.PHASES)
     seen = {}
 
     def worker():
-        with mod._phase("thread"):
+        with spans.span("thread"):
             seen["stack"] = list(spans._OPEN.stack)
 
-    with mod._phase("outer"):
-        with mod._phase("outer.inner"):
-            t = threading.Thread(target=worker, name="worker")
-            t.start()
-            t.join(timeout=60)
+    try:
+        with spans.span("outer"):
+            with spans.span("outer.inner"):
+                t = threading.Thread(target=worker, name="worker")
+                t.start()
+                t.join(timeout=60)
+    finally:
+        spans.end_run()
+    with spans.span("after"):
+        pass
     got = {s.name: s for s in spans.RECORD.spans}
     assert set(got) == {"outer", "outer.inner", "thread"}
     assert got["outer"].parent is None and got["thread"].parent is None
@@ -291,7 +333,7 @@ def test_phase_records_through_one_recorder(monkeypatch, mod):
     assert all(s.run == run for s in got.values())
     assert set(mod.PHASES) == set(got)
     assert mod.PHASES["outer"] >= mod.PHASES["outer.inner"] > 0
-    assert not hasattr(PP, "MARKS")
+    assert not hasattr(PP, "MARKS") and not hasattr(mod, "_phase")
 
 
 def test_threads_lose_nothing(monkeypatch):
@@ -299,13 +341,13 @@ def test_threads_lose_nothing(monkeypatch):
     interval: every span is recorded once, with its parent on its own
     thread, and each PHASES total is the sum of its spans."""
     monkeypatch.setattr(PP, "PHASES", {})
-    spans.start_run()
+    spans.start_run(PP.PHASES)
     n_threads, n_iter = 16, 200
 
     def work():
         for _ in range(n_iter):
-            with PP._phase("a"):
-                with PP._phase("a.b"):
+            with spans.span("a"):
+                with spans.span("a.b"):
                     pass
 
     interval = sys.getswitchinterval()
@@ -319,6 +361,7 @@ def test_threads_lose_nothing(monkeypatch):
             t.join(timeout=60)
     finally:
         sys.setswitchinterval(interval)
+        spans.end_run()
     assert not any(t.is_alive() for t in threads)
     record = spans.RECORD.spans
     assert len(record) == 2 * n_threads * n_iter
